@@ -1,0 +1,37 @@
+"""The port runs without JAX: importing every mfas_tpu_torch module, in a
+fresh interpreter, loads neither jax nor the JAX package."""
+
+import json
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+PROBE = """
+import importlib, json, pkgutil, sys
+import mfas_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(mfas_tpu_torch.__path__,
+                                                "mfas_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(k for k in sys.modules
+             if k.split(".")[0] in ("jax", "jaxlib", "mfas_tpu"))
+print(json.dumps({"modules": names, "bad": bad}))
+"""
+
+
+def test_port_imports_neither_jax_nor_mfas_tpu():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [ROOT] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p])
+    out = subprocess.run([sys.executable, "-c", PROBE], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120,
+                         check=True).stdout
+    res = json.loads(out.strip().splitlines()[-1])
+    assert res["bad"] == []
+    for name in ("mfas_tpu_torch.main_found_ntu",
+                 "mfas_tpu_torch.ops.input_kernels",
+                 "mfas_tpu_torch.data.resident",
+                 "mfas_tpu_torch.engine.classifier"):
+        assert name in res["modules"]
