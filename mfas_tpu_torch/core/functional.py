@@ -39,31 +39,37 @@ def global_avg_pool2d(x):
 def interpolate_bilinear(x, size):
     """(N,C,H,W) -> (N,C,*size), half-pixel centers, no antialias. Equal to
     the JAX package's jax.image.resize(linear) when upsampling, the only
-    use on the found-NTU path (hcn_motion's (T-1) -> T)."""
+    use on the found-NTU path (hcn_motion's (T-1) -> T). The result keeps
+    x's dtype (autocast runs the resize in f32 on the card)."""
     return TF.interpolate(x, size=tuple(size), mode="bilinear",
-                          align_corners=False)
+                          align_corners=False).to(x.dtype)
 
 
-def _drop(x, p, mask_shape):
+def _drop(x, p, mask_shape, generator):
+    if generator is None:
+        raise ValueError("dropout draws its mask from an explicit "
+                         "torch.Generator; got None")
     keep = torch.empty(mask_shape, device=x.device, dtype=x.dtype)
-    return x * keep.bernoulli_(1.0 - p) / (1.0 - p)
+    return x * keep.bernoulli_(1.0 - p, generator=generator) / (1.0 - p)
 
 
-def dropout(x, p):
-    """torch Dropout train mode: zero with prob p, keep scaled by 1/(1-p)."""
+def dropout(x, p, generator):
+    """torch Dropout train mode: zero with prob p, keep scaled by 1/(1-p).
+    The mask comes from ``generator`` (on x's device), never from torch's
+    global RNG."""
     if p <= 0.0:
         return x
-    return _drop(x, p, x.shape)
+    return _drop(x, p, x.shape, generator)
 
 
-def dropout2d(x, p):
+def dropout2d(x, p, generator):
     """Whole channels (axis 1) on rank >= 3 inputs; element-wise on rank
     <= 2, as the JAX package's dropout2d."""
     if p <= 0.0:
         return x
     if x.dim() <= 2:
-        return dropout(x, p)
-    return _drop(x, p, x.shape[:2] + (1,) * (x.dim() - 2))
+        return dropout(x, p, generator)
+    return _drop(x, p, x.shape[:2] + (1,) * (x.dim() - 2), generator)
 
 
 def cross_entropy(logits, labels, weights=None):

@@ -85,7 +85,15 @@ class _BatchNorm(nn.Module):
       clamped at 0), biased variance normalizes, unbiased variance feeds the
       running average, which stays f32 (mfas_tpu/core/layers.py:171-210);
     * eval mode: the running statistics cast to the activation dtype
-      (:211-216).
+      (:211-216);
+    * the normalization and the affine run in the activation dtype: under
+      bf16 autocast ``weight``/``bias`` are cast to bf16 as the JAX
+      package's ``cast_compute`` casts them, so they never promote the
+      activations back to f32.
+
+    ``update_running_stats = False`` makes a train-mode forward leave the
+    running statistics and ``num_batches_tracked`` alone (the recomputation
+    of a rematerialized segment, core/remat.py).
     """
 
     def __init__(self, num_features, eps=1e-5, momentum=0.1, *, device):
@@ -93,6 +101,7 @@ class _BatchNorm(nn.Module):
         n = int(num_features)
         self.eps = eps
         self.momentum = momentum
+        self.update_running_stats = True
         self.weight = nn.Parameter(torch.ones(n, device=device))
         self.bias = nn.Parameter(torch.zeros(n, device=device))
         self.register_buffer("running_mean", torch.zeros(n, device=device))
@@ -109,20 +118,23 @@ class _BatchNorm(nn.Module):
             mean = xs.mean(dim=axes)
             var = torch.clamp(xs.square().mean(dim=axes) - mean.square(),
                               min=0.0)
-            with torch.no_grad():
-                n = x.numel() // x.shape[1]
-                m = self.momentum
-                self.running_mean.mul_(1 - m).add_(m * mean)
-                self.running_var.mul_(1 - m).add_(
-                    m * (var * (n / max(n - 1, 1))))
-                self.num_batches_tracked.add_(1)
+            if self.update_running_stats:
+                with torch.no_grad():
+                    n = x.numel() // x.shape[1]
+                    m = self.momentum
+                    self.running_mean.mul_(1 - m).add_(m * mean)
+                    self.running_var.mul_(1 - m).add_(
+                        m * (var * (n / max(n - 1, 1))))
+                    self.num_batches_tracked.add_(1)
             mean, var = mean.to(x.dtype), var.to(x.dtype)
         else:
             mean = self.running_mean.to(x.dtype)
             var = self.running_var.to(x.dtype)
-        out = (x - mean.reshape(shape)) * torch.rsqrt(var.reshape(shape)
-                                                      + self.eps)
-        return out * self.weight.reshape(shape) + self.bias.reshape(shape)
+        # autocast runs rsqrt in f32 on the card: cast it back
+        inv = torch.rsqrt(var.reshape(shape) + self.eps).to(x.dtype)
+        out = (x - mean.reshape(shape)) * inv
+        return (out * self.weight.to(x.dtype).reshape(shape)
+                + self.bias.to(x.dtype).reshape(shape))
 
 
 class BatchNorm1d(_BatchNorm):
@@ -159,22 +171,42 @@ class Sigmoid(nn.Module):
         return torch.sigmoid(x)
 
 
-class Dropout(nn.Module):
+class _DropoutBase(nn.Module):
+    """Train-mode dropout draws its mask from ``self.generator``, a
+    ``torch.Generator`` on the activations' device that the training engine
+    hands to every dropout layer of its model (``set_dropout_generator``).
+    A train-mode forward without one raises: no mask ever comes from
+    torch's global RNG."""
+    _fn = None
+
     def __init__(self, p=0.5):
         super().__init__()
         self.p = float(p)
+        self.generator = None
 
     def forward(self, x):
-        return F.dropout(x, self.p) if self.training else x
+        if not self.training:
+            return x
+        if self.generator is None:
+            raise RuntimeError(
+                f"{type(self).__name__} in train mode has no generator: "
+                "call core.layers.set_dropout_generator(model, generator)")
+        return type(self)._fn(x, self.p, self.generator)
 
 
-class Dropout2d(nn.Module):
-    def __init__(self, p=0.5):
-        super().__init__()
-        self.p = float(p)
+class Dropout(_DropoutBase):
+    _fn = staticmethod(F.dropout)
 
-    def forward(self, x):
-        return F.dropout2d(x, self.p) if self.training else x
+
+class Dropout2d(_DropoutBase):
+    _fn = staticmethod(F.dropout2d)
+
+
+def set_dropout_generator(model, generator):
+    """Point every dropout layer of ``model`` at ``generator``."""
+    for m in model.modules():
+        if isinstance(m, _DropoutBase):
+            m.generator = generator
 
 
 class MaxPool2d(nn.Module):
@@ -202,5 +234,5 @@ class AlphaScalarMultiplication(nn.Module):
             (alpha_init or I.zeros)(generator, (1,), device))
 
     def forward(self, x, y):
-        factor = torch.sigmoid(self.alpha_x)
+        factor = torch.sigmoid(self.alpha_x.to(x.dtype))
         return x * factor, y * (1.0 - factor)

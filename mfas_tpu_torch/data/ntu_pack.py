@@ -84,23 +84,28 @@ class PackedNTU:
         return sample
 
 
-def make_device_normalize_prep():
-    """Engine batch_prep: uint8 'rgb' -> normalized float32 on the batch's
-    device (kernel K1 on the card). Only raw uint8 3-channel clips get the
-    affine; anything else (a skeleton-only placeholder, an already-float
-    clip) is cast and passes through, never normalized twice."""
+def make_device_normalize_prep(compute_dtype=None):
+    """Engine batch_prep: uint8 'rgb' -> normalized clips on the batch's
+    device (kernel K1 on the card), in ``compute_dtype`` (float32 when None;
+    a bf16 clip is rounded once from the f32 affine, inside the kernel).
+    Only raw uint8 3-channel clips get the affine; anything else (a
+    skeleton-only placeholder, an already-float clip) is cast and passes
+    through, never normalized twice."""
     import torch
 
     from mfas_tpu_torch.ops.input_kernels import u8_normalize
+
+    out_dtype = compute_dtype or torch.float32
 
     def prep(batch):
         batch = dict(batch)
         rgb = batch["rgb"]
         if rgb.shape[-1] == 3 and rgb.dtype == torch.uint8:
             batch["rgb"] = u8_normalize(rgb, ntu_data.IMAGENET_MEAN,
-                                        ntu_data.IMAGENET_STD)
+                                        ntu_data.IMAGENET_STD,
+                                        out_dtype=out_dtype)
         else:
-            batch["rgb"] = rgb.float()
+            batch["rgb"] = rgb.to(out_dtype)
         return batch
 
     return prep

@@ -173,9 +173,13 @@ class ResidentLoader(ResumableRng):
             yield batch
 
 
-def make_resident_prep(no_norm=False, fuse_gather=False):
-    """Engine batch_prep: store gather + temporal resample + normalize (to
-    f32) on the store's device.
+def make_resident_prep(no_norm=False, fuse_gather=False,
+                       compute_dtype=None):
+    """Engine batch_prep: store gather + temporal resample + normalize on
+    the store's device. Clips come out in ``compute_dtype`` (float32 when
+    None): under bf16 the kernel rounds the f32 affine once and writes bf16,
+    so no f32 clip is written and read back for the cast
+    (mfas_tpu/data/resident.py:233-307). Skeletons stay f32.
 
     fuse_gather=True reads the clips straight out of the store with
     ``u8_gather_normalize`` (kernel K2 on the card: the gathered uint8 clip
@@ -185,6 +189,7 @@ def make_resident_prep(no_norm=False, fuse_gather=False):
                                                   u8_normalize)
 
     mean, std = ntu_data.IMAGENET_MEAN, ntu_data.IMAGENET_STD
+    out_dtype = compute_dtype or torch.float32
 
     def prep(batch):
         batch = dict(batch)
@@ -195,10 +200,10 @@ def make_resident_prep(no_norm=False, fuse_gather=False):
             rgb_t = batch.pop("rgb_t").long()
             if fuse_gather:
                 batch["rgb"] = u8_gather_normalize(rgb_store, idx, rgb_t,
-                                                   mean, std)
+                                                   mean, std, out_dtype)
             else:
                 batch["rgb"] = u8_normalize(rgb_store[idx[:, None], rgb_t],
-                                            mean, std)
+                                            mean, std, out_dtype=out_dtype)
         else:
             batch["rgb"] = torch.zeros((idx.shape[0], 1),
                                        device=idx.device)

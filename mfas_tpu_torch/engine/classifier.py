@@ -1,32 +1,83 @@
-"""Evaluation engine for the classification verticals (the evaluation half
-of mfas_tpu/engine/classifier.py).
+"""Train/eval engine for the classification verticals (port of
+mfas_tpu/engine/classifier.py).
 
-Loop semantics kept from the reference (train_searchable/ntu.py:14-89):
-  * multitask predictions are the argmax of the summed logits of the three
-    heads (:60-61);
+Loop semantics kept from the reference (train_ntu_track_acc,
+train_searchable/ntu.py:14-89):
+  * epochs x {train, dev} phases; the train phase steps the scheduler per
+    batch *before* the optimizer step;
+  * multitask loss = sum of CE over the three heads; predictions are the
+    argmax of the summed logits (:60-61);
   * corrects are ``_mask``-weighted, so the padded rows of a ragged last
-    batch never count, and accuracy divides by the dataset size.
-The eval step runs under ``torch.inference_mode()`` with the model in
-``eval()``. Batches are collated and copied to the device one batch ahead
-on a background thread (``prefetch_to_device``).
+    batch never count, and accuracy divides by the dataset size;
+  * the best-dev state is kept (strict ``>`` over a start of 0.0, so a
+    0.0 dev epoch never snapshots) and restored at the end (:82-88).
+
+A train step is forward, (multitask) CE, backward and a torch Adam step
+with coupled weight decay WEIGHT_DECAY (core/optim.py); the trainable set is a
+``requires_grad`` split by dotted prefixes, so autograd never records the
+frozen part, while the whole model runs in ``train()`` and the frozen
+BatchNorms still update their running statistics, as the JAX engine folds
+``ctx.updates`` into its frozen tree. Per-batch losses and corrects stay on
+the device until a phase ends. Batches are collated and copied to the device
+one batch ahead on a background thread (``prefetch_to_device``).
+
+``compute_dtype=torch.bfloat16`` runs forward and backward under
+``torch.autocast`` with f32 parameters and Adam; inputs are cast like the
+JAX engine's ``cast_compute``, outputs go back to f32 before the loss, and
+BatchNorm statistics are computed and kept in f32 (core/layers.py).
+``remat=True`` checkpoints the model's segments (core/remat.py).
+
+Dropout draws from ``self.generator``, on the engine's device, seeded per
+epoch at ``TRAIN_SEED_OFFSET + epoch``: apart from the model's init seed
+(0), and the same at an epoch whether the run was resumed or not.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import os
 import time
 
 import numpy as np
 import torch
 
 from mfas_tpu_torch.core import functional as F
+from mfas_tpu_torch.core.layers import set_dropout_generator
+from mfas_tpu_torch.core.optim import make_adam, set_lr
 from mfas_tpu_torch.data.loader import prefetch_to_device, to_device
+
+# dropout's seed at epoch 0: the found CLIs' init seed (0) plus the JAX
+# package's offset between a candidate's init and dropout seeds
+# (mfas_tpu/search/trainers.py::TRAIN_SEED_OFFSET)
+TRAIN_SEED_OFFSET = 1_000_003
+# the JAX engine's default coupled L2 weight decay (engine/classifier.py:90)
+WEIGHT_DECAY = 1e-4
 
 
 def place_batch(batch, device):
     """Host batch -> tensors on ``device``; tensors already placed (the
     resident store riding along in its batches) pass through untouched."""
     return {k: to_device(v, device) for k, v in batch.items()}
+
+
+def set_trainable(model, prefixes=None):
+    """requires_grad on the parameters under any of the dotted ``prefixes``
+    (every parameter when None), off on the rest: the JAX engine's
+    ``split_tree`` (engine/classifier.py:38-50, ``prefix_predicate``)."""
+    for name, p in model.named_parameters():
+        p.requires_grad_(prefixes is None or any(
+            name == q or name.startswith(q + ".") for q in prefixes))
+
+
+def snapshot(model):
+    """A copy of the model's state_dict on its device."""
+    return {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 @dataclasses.dataclass
@@ -41,9 +92,21 @@ class EvalRecord:
     clips: int
 
 
+@dataclasses.dataclass
+class TrainRecord:
+    """One ``train_track_acc`` call: the printed per-epoch statistics
+    (dicts of phase, epoch, loss, acc), and the wall time of its train
+    phases (each ends with a device synchronize) and the clips they took."""
+    epochs: list = dataclasses.field(default_factory=list)
+    train_seconds: float = 0.0
+    train_clips: int = 0
+    best_acc: float = 0.0
+
+
 class ClassifierEngine:
     def __init__(self, model, device, multitask=False,
-                 input_keys=("image", "audio"), batch_prep=None):
+                 input_keys=("image", "audio"), batch_prep=None,
+                 compute_dtype=None, remat=False):
         self.model = model
         self.device = torch.device(device)
         self.multitask = multitask
@@ -51,13 +114,34 @@ class ClassifierEngine:
         # batch_prep: on-device batch transform (e.g. the uint8 -> float
         # input kernels for packed and resident NTU batches)
         self.batch_prep = batch_prep
+        self.compute_dtype = compute_dtype
+        self.generator = torch.Generator(device=self.device)
+        set_dropout_generator(model, self.generator)
+        if remat:
+            from mfas_tpu_torch.core.remat import enable_remat
+            enable_remat(model.remat_segments())
         self.last_eval = None
+        self.train_records = []
+
+    # ---------------- one batch
+    def _autocast(self):
+        if self.compute_dtype is None:
+            return contextlib.nullcontext()
+        return torch.autocast(self.device.type, dtype=self.compute_dtype)
 
     def _forward(self, batch):
         """-> (loss, corrects, model output) for one placed batch."""
         if self.batch_prep is not None:
             batch = self.batch_prep(batch)
-        out = self.model(tuple(batch[k] for k in self.input_keys))
+        inputs = tuple(batch[k] for k in self.input_keys)
+        if self.compute_dtype is not None:
+            inputs = tuple(x.to(self.compute_dtype) if x.is_floating_point()
+                           else x for x in inputs)
+        with self._autocast():
+            out = self.model(inputs)
+        if self.compute_dtype is not None:
+            out = (tuple(o.float() for o in out)
+                   if isinstance(out, (tuple, list)) else out.float())
         label = batch["label"].long()
         w = batch["_mask"]
         if self.multitask:
@@ -71,9 +155,99 @@ class ClassifierEngine:
         corrects = ((preds == label).to(w.dtype) * w).sum()
         return loss, corrects, out
 
+    def _train_step(self, batch, optimizer, eta):
+        loss, corrects, _ = self._forward(batch)
+        optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        set_lr(optimizer, eta)
+        optimizer.step()
+        return loss.detach(), corrects.detach()
+
     def _prefetched(self, loader):
-        return prefetch_to_device(loader,
-                                  lambda b: place_batch(b, self.device))
+        """(n_valid, device batch) pairs, one batch ahead."""
+        def place(batch):
+            return (float(np.sum(batch["_mask"])),
+                    place_batch(batch, self.device))
+
+        return prefetch_to_device(loader, place)
+
+    # ---------------- host loops
+    def train_track_acc(self, trainable_prefixes, dataloaders, dataset_sizes,
+                        scheduler, num_epochs, print_loss=True,
+                        state_path=None, resume=False):
+        """Train the parameters under ``trainable_prefixes`` (all when
+        None) with a fresh Adam. Returns (best_dev_acc, best_state) and
+        leaves the model in ``best_state``, which is the initial state when
+        no dev epoch beat 0.0. With ``state_path`` the
+        whole training state is written after every epoch, and
+        ``resume=True`` continues from it when the file exists. The call's
+        TrainRecord is appended to ``self.train_records``."""
+        model = self.model
+        set_trainable(model, trainable_prefixes)
+        optimizer = make_adam(model.parameters(), WEIGHT_DECAY)
+        best_acc = 0.0
+        best_state = snapshot(model)
+        start_epoch = 0
+        if resume and state_path and os.path.exists(state_path):
+            from mfas_tpu_torch.runtime.train_state import load_train_state
+            st = load_train_state(state_path, model=model,
+                                  optimizer=optimizer, scheduler=scheduler)
+            best_state, best_acc = st["best_state"], st["best_acc"]
+            start_epoch = st["epoch"] + 1
+            if print_loss:
+                print(f"Resuming training at epoch {start_epoch} "
+                      f"(best dev acc {best_acc:.4f})")
+
+        record = TrainRecord()
+        for epoch in range(start_epoch, num_epochs):
+            self.generator.manual_seed(TRAIN_SEED_OFFSET + epoch)
+            for phase in ("train", "dev"):
+                train = phase == "train"
+                model.train(train)
+                losses, n_valid, corrects = [], [], []
+                t0 = time.perf_counter()
+                with contextlib.nullcontext() if train else \
+                        torch.inference_mode():
+                    for n, batch in self._prefetched(dataloaders[phase]):
+                        if train:
+                            loss, c = self._train_step(batch, optimizer,
+                                                       scheduler.step())
+                        else:
+                            loss, c, _ = self._forward(batch)
+                        losses.append(loss)
+                        corrects.append(c)
+                        n_valid.append(n)
+                _sync(self.device)
+                if train:
+                    record.train_seconds += time.perf_counter() - t0
+                    record.train_clips += int(dataset_sizes[phase])
+                # one device->host copy per phase
+                ls = torch.stack(losses).tolist() if losses else []
+                cs = torch.stack(corrects).tolist() if corrects else []
+                epoch_loss = (sum(l * n for l, n in zip(ls, n_valid))
+                              / dataset_sizes[phase])
+                epoch_acc = sum(cs) / dataset_sizes[phase]
+                record.epochs.append(dict(phase=phase, epoch=epoch,
+                                          loss=epoch_loss, acc=epoch_acc))
+                if print_loss:
+                    print("{} Loss: {:.4f} Acc: {:.4f}".format(
+                        phase, epoch_loss, epoch_acc))
+                if not train and epoch_acc > best_acc:
+                    best_acc = epoch_acc
+                    best_state = snapshot(model)
+
+            if state_path:
+                from mfas_tpu_torch.runtime.train_state import \
+                    save_train_state
+                save_train_state(state_path, model=model,
+                                 best_state=best_state, optimizer=optimizer,
+                                 scheduler=scheduler, epoch=epoch,
+                                 best_acc=best_acc)
+
+        model.load_state_dict(best_state)
+        record.best_acc = best_acc
+        self.train_records.append(record)
+        return best_acc, best_state
 
     def test_track_acc(self, dataloader, dataset_size):
         """Accuracy of the model over ``dataloader``; the pass is kept in
@@ -82,7 +256,7 @@ class ClassifierEngine:
         corrects, logits, masks = [], [], []
         t0 = time.perf_counter()
         with torch.inference_mode():
-            for batch in self._prefetched(dataloader):
+            for _, batch in self._prefetched(dataloader):
                 _, c, out = self._forward(batch)
                 corrects.append(c)
                 logits.append(out[0] if isinstance(out, (tuple, list))

@@ -69,6 +69,13 @@ class Searchable_Skeleton_Image_Net(nn.Module):
             prefixes.insert(0, "alphas")
         return prefixes
 
+    def remat_segments(self):
+        """The modules ``--remat`` checkpoints one by one (core/remat.py):
+        every residual block of the 3D ResNet, which hold nearly all the
+        activations, and the skeleton net, whose dropout layers the
+        recomputation must replay."""
+        return self.rgbnet.cnn.blocks() + [self.skenet]
+
     def forward(self, tensor_tuple):
         image, skeleton = tensor_tuple[0], tensor_tuple[1]
         vis = self.rgbnet(image)

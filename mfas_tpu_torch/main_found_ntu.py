@@ -1,17 +1,27 @@
 #!/usr/bin/env python3
-"""Evaluate a found NTU fusion architecture on the card (port of
-main_found_ntu.py's --test_cp path; same flags and defaults).
+"""Train and test a found NTU fusion architecture on the card (port of
+main_found_ntu.py; same flags and defaults).
 
-    python -m mfas_tpu_torch.main_found_ntu --test_cp net.checkpoint \\
-        --checkpointdir ckpt/ --packed_datadir packed/ --hbm_resident \\
-        --conf 4 --batchnorm
+    python -m mfas_tpu_torch.main_found_ntu --packed_datadir packed/ \\
+        --hbm_resident --conf 4 --batchnorm --random_backbones
 
-loads a full checkpoint (``torch.save(model.state_dict())`` or the JAX
-package's checkpoint writer) into a freshly built model on the card and
-prints ``Model Acc: <float>`` for the test split. The input comes from a
-packed store (subdirs train/dev/test), either streamed as raw uint8 clips
-normalized on the card (``--device_input_normalize``, kernel K1) or copied to
-the card once and gathered there (``--hbm_resident``, kernel K2).
+trains the found net in two phases (reference :94-157) and evaluates it on
+the test split: one epoch of the central weights only (fusion layers and
+classifier, backbones frozen but in train mode) from the per-batch cosine
+schedule, then the whole net for --epochs epochs with a fresh Adam and
+schedule; each phase keeps its best dev state. ``--test_cp net.checkpoint``
+skips training and evaluates a full checkpoint (``torch.save`` of a
+state_dict, or the JAX package's checkpoint writer). The backbones come from
+--ske_cp/--rgb_cp in --checkpointdir, or stay random with
+--random_backbones. Options: --bf16 (autocast compute, f32 parameters and
+Adam), --remat (recompute activations in backward), --train_state F
+[--resume] (per-epoch resumable state; a resume skips phase 1),
+--save_checkpoint, --profile_dir D.
+
+The input comes from a packed store (subdirs train/dev/test), either
+streamed as raw uint8 clips normalized on the card
+(``--device_input_normalize``, kernel K1) or copied to the card once and
+gathered there (``--hbm_resident``, kernel K2).
 
 From the command line the device is CUDA and the run fails without it;
 ``main(argv, device="cpu")`` runs the same path on the CPU with the kernels'
@@ -20,7 +30,9 @@ their ROADMAP.md item.
 """
 
 import argparse
+import dataclasses
 import os
+import re
 import time
 
 import numpy as np
@@ -139,10 +151,12 @@ FOUND_CONFS = {
     4: np.array([[3, 1, 1], [1, 3, 0], [1, 1, 1], [3, 3, 0]]),
 }
 
-_TRAINING = "ROADMAP.md §1 'Found-architecture training'"
 _NATIVE_IO = "ROADMAP.md §1 'NTU raw-AVI and native IO path'"
-_RUNTIME = "ROADMAP.md §1 'Checkpoints, export and profiling'"
 _MULTI_GPU = "ROADMAP.md §1 'Multi-GPU'"
+
+# the initial weights' seed (the JAX CLI's model.init(0)); dropout draws
+# from the engine's generator, seeded apart from it
+INIT_SEED = 0
 
 
 def _reject_unported(args):
@@ -152,13 +166,6 @@ def _reject_unported(args):
     packed_host_norm = (args.packed_datadir and not args.hbm_resident
                         and not args.device_input_normalize)
     checks = [
-        (not args.test_cp, "training (a run without --test_cp)", _TRAINING),
-        (args.bf16, "--bf16", _TRAINING),
-        (args.remat, "--remat", _TRAINING),
-        (args.train_state or args.resume, "--train_state/--resume",
-         _TRAINING),
-        (args.save_checkpoint, "--save_checkpoint", _RUNTIME),
-        (args.profile_dir, "--profile_dir", _RUNTIME),
         (args.use_dataparallel, "--use_dataparallel", _MULTI_GPU),
         (dist, "--dist_*", _MULTI_GPU),
         (args.shard_resident_store, "--shard_resident_store", _MULTI_GPU),
@@ -209,34 +216,139 @@ def get_dataloaders(args, device):
             for k, v in datasets.items()}
 
 
-def evaluate(model, dataloaders, args, device):
-    """The test split's accuracy; returns (acc, engine.last_eval)."""
-    from mfas_tpu_torch.engine.classifier import ClassifierEngine
-
-    if args.hbm_resident:
-        from mfas_tpu_torch.data.resident import make_resident_prep
-        batch_prep = make_resident_prep(no_norm=args.no_norm, fuse_gather=True)
-    else:
-        from mfas_tpu_torch.data.ntu_pack import make_device_normalize_prep
-        batch_prep = make_device_normalize_prep()
-    engine = ClassifierEngine(model, device, multitask=args.multitask,
-                              input_keys=("rgb", "ske"),
-                              batch_prep=batch_prep)
-    test = dataloaders['test']
-    test_acc = engine.test_track_acc(test, test.dataset_size)
-    if args.verbose:
-        print('Final test accuracy: ' + str(test_acc))
-    return test_acc, engine.last_eval
-
-
-def main(argv=None, device=None):
-    """Returns (test accuracy, the EvalRecord of the test pass)."""
+def build_model(args, configuration, device):
+    """The found net with its initial weights drawn from INIT_SEED."""
     import torch
 
     from mfas_tpu_torch.fusion.ntu import Searchable_Skeleton_Image_Net
-    from mfas_tpu_torch.runtime.checkpoint import load_state_dict
 
-    print("Evaluating found NTU network")
+    return Searchable_Skeleton_Image_Net(
+        args, configuration, device=device,
+        generator=torch.Generator().manual_seed(INIT_SEED))
+
+
+def make_engine(model, args, device):
+    """The classifier engine with this run's batch prep (K1 or K2, in the
+    compute dtype), precision and remat."""
+    import torch
+
+    from mfas_tpu_torch.engine.classifier import ClassifierEngine
+
+    compute_dtype = torch.bfloat16 if args.bf16 else None
+    if args.hbm_resident:
+        from mfas_tpu_torch.data.resident import make_resident_prep
+        batch_prep = make_resident_prep(no_norm=args.no_norm,
+                                        fuse_gather=True,
+                                        compute_dtype=compute_dtype)
+    else:
+        from mfas_tpu_torch.data.ntu_pack import make_device_normalize_prep
+        batch_prep = make_device_normalize_prep(compute_dtype)
+    return ClassifierEngine(model, device, multitask=args.multitask,
+                            input_keys=("rgb", "ske"), batch_prep=batch_prep,
+                            compute_dtype=compute_dtype, remat=args.remat)
+
+
+def _train_phase(engine, what, *args, **kw):
+    """One ``engine.train_track_acc`` call; prints its train clips/s and,
+    on the card, the peak allocated memory of the call, which it returns
+    beside the call's result."""
+    import torch
+
+    cuda = engine.device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(engine.device)
+    result = engine.train_track_acc(*args, **kw)
+    peak = torch.cuda.max_memory_allocated(engine.device) if cuda else None
+    record = engine.train_records[-1]
+    if record.train_seconds:
+        print("{} train clips/s: {:.2f} ({} clips in {:.3f} s on {}{})".format(
+            what, record.train_clips / record.train_seconds,
+            record.train_clips, record.train_seconds, engine.device,
+            "" if peak is None else
+            ", peak {:.2f} GiB allocated".format(peak / 2**30)))
+    return result, peak
+
+
+def train_model(engine, model, configuration, dataloaders, args):
+    """The two training phases (unless --test_cp), then the test split;
+    returns the test accuracy and the peak allocated device memory of each
+    training phase run (main_found_ntu.py:190-264)."""
+    from mfas_tpu_torch.core.sched import LRCosineAnnealingScheduler
+
+    sizes = {k: dl.dataset_size for k, dl in dataloaders.items()}
+    trainval = {k: dataloaders[k] for k in ('train', 'dev')}
+    peaks = []
+    if args.test_cp == '':
+        nbpe = sizes['train'] / args.batchsize
+
+        state_path = args.train_state or None
+        resuming = args.resume and state_path and os.path.exists(state_path)
+        if resuming:
+            # phase 2's resume load replaces the whole training state, so
+            # the phase-1 central pretrain would be an epoch of wasted work
+            if args.verbose:
+                print('Resuming phase 2 from ' + state_path
+                      + ' (central pretrain skipped)')
+        else:
+            if args.verbose:
+                print('Pretraining central weights: ')
+                print(configuration)
+            scheduler = LRCosineAnnealingScheduler(
+                args.eta_max, args.eta_min, args.Ti, args.Tm, nbpe)
+            (interm_acc, _), peak = _train_phase(
+                engine, "Phase 1 (central weights)", model.central_params(),
+                trainval, sizes, scheduler, num_epochs=1,
+                print_loss=args.verbose)
+            peaks.append(peak)
+            if args.verbose:
+                print('Intermediate val accuracy: ' + str(interm_acc))
+
+        scheduler = LRCosineAnnealingScheduler(
+            args.eta_max, args.eta_min, args.Ti, args.Tm, nbpe)
+        (best_acc, _), peak = _train_phase(
+            engine, "Phase 2 (whole net)", None, trainval, sizes, scheduler,
+            num_epochs=args.epochs, print_loss=args.verbose,
+            state_path=state_path, resume=args.resume)
+        peaks.append(peak)
+        if args.verbose:
+            print('Final val accuracy: ' + str(best_acc))
+
+    test = dataloaders['test']
+    test_acc = engine.test_track_acc(test, sizes['test'])
+    if args.verbose:
+        print('Final test accuracy: ' + str(test_acc))
+    return test_acc, peaks
+
+
+def checkpoint_filename(args, configuration, modelacc):
+    """The JAX CLI's name for --save_checkpoint (main_found_ntu.py:317-326)."""
+    confstr = np.array2string(configuration, precision=1, separator='_',
+                              suppress_small=True)
+    confstr = re.sub(r"_\n ", "_", confstr)
+    return os.path.join(args.checkpointdir, "final_conf_" + confstr + "_"
+                        + str(modelacc) + ".checkpoint")
+
+
+@dataclasses.dataclass
+class FoundRun:
+    """What ``main`` returns: the test accuracy, the test pass's
+    EvalRecord, one TrainRecord per training phase run and that phase's
+    peak allocated device memory (None off the card), and the path
+    --save_checkpoint wrote (or None)."""
+    acc: float
+    eval: object
+    train: list
+    train_peak_bytes: list
+    saved: str | None = None
+
+
+def main(argv=None, device=None):
+    import torch
+
+    from mfas_tpu_torch.runtime import checkpoint as ckpt
+    from mfas_tpu_torch.runtime.profiler import maybe_profile
+
+    print("Training found NTU network")
     args = parse_args(argv)
     _reject_unported(args)
     if device is None:
@@ -252,21 +364,36 @@ def main(argv=None, device=None):
         raise SystemExit(f"--conf must be one of {sorted(FOUND_CONFS)} "
                          f"(got {args.conf})")
     configuration = FOUND_CONFS[args.conf]
-    model = Searchable_Skeleton_Image_Net(
-        args, configuration, device=device,
-        generator=torch.Generator().manual_seed(0))
-    full = os.path.join(args.checkpointdir, args.test_cp)
-    model.load_state_dict(load_state_dict(full), strict=True)
+    model = build_model(args, configuration, device)
+    if args.test_cp:
+        full = os.path.join(args.checkpointdir, args.test_cp)
+        model.load_state_dict(ckpt.load_state_dict(full), strict=True)
+    else:
+        ckpt.load_backbone(os.path.join(args.checkpointdir, args.ske_cp),
+                           model.skenet, random_ok=args.random_backbones)
+        ckpt.load_backbone(os.path.join(args.checkpointdir, args.rgb_cp),
+                           model.rgbnet, random_ok=args.random_backbones)
 
     dataloaders = get_dataloaders(args, device)
+    engine = make_engine(model, args, device)
     start_time = time.time()
-    modelacc, record = evaluate(model, dataloaders, args, device)
+    with maybe_profile(args.profile_dir, device):
+        modelacc, peaks = train_model(engine, model, configuration,
+                                      dataloaders, args)
     elapsed = time.time() - start_time
-    print('Evaluation in {:.0f}m {:.0f}s'.format(elapsed // 60, elapsed % 60))
+    record = engine.last_eval
+    print('Training in {:.0f}m {:.0f}s'.format(elapsed // 60, elapsed % 60))
     print('Eval clips/s: {:.1f} ({} clips on {})'.format(
         record.clips / record.seconds, record.clips, device))
     print('Model Acc: {}'.format(modelacc))
-    return modelacc, record
+
+    saved = None
+    if args.save_checkpoint:
+        saved = checkpoint_filename(args, configuration, modelacc)
+        ckpt.save(model.state_dict(), saved)
+        print('Saved ' + saved)
+    return FoundRun(acc=modelacc, eval=record, train=engine.train_records,
+                    train_peak_bytes=peaks, saved=saved)
 
 
 if __name__ == "__main__":

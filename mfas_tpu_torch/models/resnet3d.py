@@ -84,6 +84,11 @@ class ResNet3D(nn.Module):
             mods.append(Bottleneck3D(self.inplanes, planes, **kw))
         return nn.Sequential(*mods)
 
+    def blocks(self):
+        """The residual blocks of the four stages, in order."""
+        return [b for layer in (self.layer1, self.layer2, self.layer3,
+                                self.layer4) for b in layer]
+
     def forward(self, x):
         """x: (B, C, T, W, H) -> (fm1, fm2, fm3, fm4), all 5D."""
         B, C, T, W, H = x.shape

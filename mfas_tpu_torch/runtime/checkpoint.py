@@ -1,16 +1,21 @@
 """Checkpoints in the torch format (the found-NTU slice's part of
-mfas_tpu/runtime/checkpoint.py).
+mfas_tpu/runtime/checkpoint.py and search/searchers.py::_load_backbone_tree).
 
 ``load_state_dict`` reads what ``torch.save`` and the JAX package's
-torch-free codec (``mfas_tpu.runtime.checkpoint.save``) both write.
-``state_dict_from_numpy`` carries the JAX package's parameters (a
-``flatten_tree`` dict of arrays) into a ``state_dict`` of the port.
+torch-free codec (``mfas_tpu.runtime.checkpoint.save``) both write; ``save``
+writes what both read. ``load_backbone`` fills a backbone from its published
+checkpoint. ``state_dict_from_numpy`` carries the JAX package's parameters
+(a ``flatten_tree`` dict of arrays) into a ``state_dict`` of the port.
 """
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
+
+_WARNED_MISSING = set()
 
 
 def strip_module_prefix(flat: dict) -> dict:
@@ -28,6 +33,30 @@ def load_state_dict(path) -> dict:
     if isinstance(obj.get("state_dict"), dict):
         obj = obj["state_dict"]
     return strip_module_prefix(obj)
+
+
+def save(state_dict, path):
+    """``torch.save`` of ``state_dict`` as CPU tensors (the format
+    ``--test_cp`` and the JAX package's ``load_state_dict`` read)."""
+    torch.save({k: v.detach().to("cpu") for k, v in state_dict.items()},
+               path)
+
+
+def load_backbone(path, module, random_ok=False):
+    """Load a torch-format backbone checkpoint into ``module`` (strict keys);
+    with ``random_ok``, a missing file leaves the module's initial weights
+    and warns once per path per process (--random_backbones)."""
+    if path and os.path.exists(path):
+        module.load_state_dict(load_state_dict(path), strict=True)
+        return
+    if not random_ok:
+        raise FileNotFoundError(
+            f"backbone checkpoint {path!r} not found; pass "
+            "--random_backbones to run without pretrained weights")
+    if path not in _WARNED_MISSING:
+        _WARNED_MISSING.add(path)
+        print(f"WARNING: backbone checkpoint {path!r} not found — "
+              "using random init (--random_backbones)")
 
 
 def state_dict_from_numpy(flat: dict) -> dict:

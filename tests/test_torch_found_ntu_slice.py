@@ -113,7 +113,8 @@ def test_test_cp_slice_matches_jax(fixture, path, monkeypatch, capsys):
     jax_logits = _jax_fused_logits(fixture, argv, monkeypatch)
 
     tk.reset_launch_counts()
-    acc, record = tmain.main(argv, device="cpu")
+    run = tmain.main(argv, device="cpu")
+    acc, record = run.acc, run.eval
     out = capsys.readouterr().out
     assert f"Model Acc: {acc}" in out
     assert acc == jax_acc
@@ -245,19 +246,19 @@ def test_parser_has_the_jax_option_strings_and_defaults(monkeypatch):
 
 
 UNPORTED = {
-    "training": [],
-    "bf16": ["--test_cp", "x", "--packed_datadir", "p", "--hbm_resident",
-             "--bf16"],
+    "shard_resident_store": ["--test_cp", "x", "--packed_datadir", "p",
+                             "--hbm_resident", "--shard_resident_store"],
     "dataparallel": ["--test_cp", "x", "--packed_datadir", "p",
                      "--hbm_resident", "--use_dataparallel"],
     "dist": ["--test_cp", "x", "--packed_datadir", "p", "--hbm_resident",
              "--dist_num_processes", "2"],
     "raw_avi": ["--test_cp", "x"],
+    "raw_avi_training": ["--epochs", "1"],
     "host_normalize": ["--test_cp", "x", "--packed_datadir", "p"],
     "channels_last": ["--test_cp", "x", "--packed_datadir", "p",
                       "--hbm_resident", "--conv_channels_last"],
-    "save_checkpoint": ["--test_cp", "x", "--packed_datadir", "p",
-                        "--hbm_resident", "--save_checkpoint"],
+    "dataparallel_training": ["--packed_datadir", "p", "--hbm_resident",
+                              "--use_dataparallel"],
 }
 
 

@@ -179,13 +179,17 @@ def test_activations(name):
 
 def test_dropout_layers_are_identity_in_eval_and_scale_in_train():
     x = torch.ones(64, 8, 3, 3)
+    g = torch.Generator().manual_seed(0)
     for layer in (TL.Dropout(0.5), TL.Dropout2d(0.5)):
+        TL.set_dropout_generator(layer, g)
         layer.eval()
         assert torch.equal(layer(x), x)
         layer.train()
         y = layer(x)
         assert set(torch.unique(y).tolist()) <= {0.0, 2.0}
     # Dropout2d zeroes whole channels on rank >= 3
-    y = TL.Dropout2d(0.5).train()(x)
+    layer = TL.Dropout2d(0.5).train()
+    TL.set_dropout_generator(layer, g)
+    y = layer(x)
     per_channel = y.reshape(64, 8, -1)
     assert torch.all(per_channel.amin(-1) == per_channel.amax(-1))
