@@ -11,7 +11,9 @@
 4. K2 u8_gather_normalize against its plain version, bitwise, from a
    (50,24,256,256,3) store with B=20, T=8, in f32 and bf16;
 5. times K1, K2, torch gather + K1 and the plain versions (median of CUDA
-   event timings, L2 flushed between launches), f32 and bf16;
+   event timings, L2 flushed between launches; under two timers, with and
+   without a 1 ms spin of the card before each timed call, time_ms), f32
+   and bf16;
 6. the found-NTU --test_cp slice end to end at full width (ResNet-50 3-4-6-3
    at base width 64, HCN over 32 frames, found conf 4, random weights from a
    seed): a synthetic packed store at 256x256 (24 frames, 300 skeleton
@@ -42,11 +44,31 @@
    against CPU: in f64 with --batchnorm, the loss within 1e-4 relative and
    every gradient and BatchNorm statistic within 1e-3 of its tensor's max;
    in f32, the loss within 1e-4 relative and the gradients no further from
-   the CPU's f64 ones than the CPU's f32 ones are (card_vs_cpu says why).
+   the CPU's f64 ones than the CPU's f32 ones are (card_vs_cpu says why);
+10. the NTU search at full width through ``mfas_tpu_torch.main_searchable_ntu``
+   with the CLI's defaults (12 EPNAS steps, 197 candidates) on a store whose
+   trainexp split is the train clips and whose dev split holds one clip of
+   each class: (s1) default, (s2) --cache_features, (s3) a sequential
+   --weightsharing step, (s4) a search state written and resumed; each with
+   K1's exact launch count and output dtype, the candidates trained, finite
+   accuracies and the top-5, and its wall time split into feature
+   extraction, population steps, surrogate and sampler (search_phase); the
+   card's busy share over (s1)'s first two steps, from a trace
+   (search_busy_share); then warm population train/eval steps and
+   surrogate fit steps, timed and profiled apart (search_step_times);
+11. (s5) the search's device work, card against CPU: the extractor's taps
+   on 2 clips in f32, eval mode and the streamed path's train mode, within
+   1e-4 of each tensor's max, every backbone buffer unchanged; one
+   population step (P=32, B=20, --batchnorm) in f64 within 1e-9 of each
+   tensor's max.
+
+mfas_tpu_torch/scripts/archive_smoke.sh runs this script from a git archive
+of the tree and alone in an empty directory.
 
 TF32 is off throughout. Any failed check exits non-zero. Before the last
-lines come {"slice": ...} and {"training": ...} with the measured numbers;
-the line before the last is {"kernels": [...]}; the last line is
+lines come {"slice": ...}, {"training": ...} and {"search": ...} with the
+measured numbers; then {"kernels": [...]} with each kernel's launches on the
+main paths, time, plain version's time and bound; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero.
 """
 
@@ -103,18 +125,30 @@ def card_state(when):
     return line
 
 
-def time_ms(torch, fn, iters=25, warmup=3):
+# the kernel timer: median of TIME_ITERS CUDA-event timings after
+# TIME_WARMUP calls; SPIN_CYCLES SM cycles are 1 ms at 1980 MHz
+TIME_ITERS, TIME_WARMUP = 25, 3
+SPIN_CYCLES = 2_000_000
+TIMERS = ("flush", "spin")
+
+
+def time_ms(torch, fn, timer):
     """Median device time of fn() from CUDA events. Before each timed call a
-    256 MB read evicts the 50 MB L2 (the inputs are not cached), leaves no
-    dirty line whose write-back would land inside the timed call, and keeps
-    the card busy while the host enqueues fn's work, so the host's launch
-    overhead is not timed."""
+    256 MB read evicts the 50 MB L2 (the inputs are not cached) and leaves no
+    dirty line whose write-back would land inside the timed call. Under the
+    "spin" timer a spin of SPIN_CYCLES then keeps the card busy while the
+    host enqueues the start event and fn's launches, so the host's launch
+    latency is not timed (the 256 MB read alone, ~0.1 ms, does not cover a
+    wrapper of several launches on a slow host). A host synchronize inside
+    fn is timed under both."""
     flush = torch.zeros(256 << 20, dtype=torch.uint8, device="cuda")
-    for _ in range(warmup):
+    for _ in range(TIME_WARMUP):
         fn()
     times = []
-    for _ in range(iters):
+    for _ in range(TIME_ITERS):
         flush.max()
+        if timer == "spin":
+            torch.cuda._sleep(SPIN_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -180,23 +214,42 @@ def kernel_phases(torch, tk):
     ms = {}
     for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         moved = n * (1 + dt.itemsize)   # uint8 read + output written
-        ms[name] = t = {
-            "K1": time_ms(torch, lambda: tk.u8_normalize(
-                x, MEAN, STD, out_dtype=dt)),
-            "K1_plain": time_ms(torch, lambda: tk.u8_normalize_plain(
-                x, MEAN, STD, out_dtype=dt)),
-            "K2": time_ms(torch, lambda: tk.u8_gather_normalize(
-                store, sidx, fidx, MEAN, STD, dt)),
-            "gather_K1": time_ms(torch, lambda: tk.u8_normalize(
-                store[sidx[:, None], fidx], MEAN, STD, out_dtype=dt)),
-            "K2_plain": time_ms(torch, lambda: tk.u8_gather_normalize_plain(
-                store, sidx, fidx, MEAN, STD, dt)),
+        fns = {
+            "K1": lambda: tk.u8_normalize(x, MEAN, STD, out_dtype=dt),
+            "K1_plain": lambda: tk.u8_normalize_plain(x, MEAN, STD,
+                                                      out_dtype=dt),
+            "K1_plain_copying": lambda: plain_copying(torch, tk, x, dt),
+            "K2": lambda: tk.u8_gather_normalize(store, sidx, fidx, MEAN,
+                                                 STD, dt),
+            "gather_K1": lambda: tk.u8_normalize(
+                store[sidx[:, None], fidx], MEAN, STD, out_dtype=dt),
+            "K2_plain": lambda: tk.u8_gather_normalize_plain(
+                store, sidx, fidx, MEAN, STD, dt),
         }
+        ms[name] = t = {k: {tm: time_ms(torch, fn, tm) for tm in TIMERS}
+                        for k, fn in fns.items()}
         for k, v in t.items():
-            print(f"{name} {k}: {v * 1e3:.1f} us, {moved / v / 1e6:.1f} GB/s "
-                  f"(uint8 in + {name} out bytes / time)")
+            print(f"{name} {k}: " + ", ".join(
+                f"{v[tm] * 1e3:.1f} us ({moved / v[tm] / 1e6:.1f} GB/s) "
+                f"under the {tm} timer" for tm in TIMERS))
+        t["bound"] = input_kernel_bound_ms(dt.itemsize)
+        print(f"{name} bound: {t['bound'] * 1e3:.1f} us ({moved / 1e6:.0f} MB "
+              f"at 3.35 TB/s); K1 at "
+              f"{100 * t['bound'] / t['K1']['spin']:.0f} %, K2 at "
+              f"{100 * t['bound'] / t['K2']['spin']:.0f} % of it (spin timer)")
     print("kernel_times_ms " + json.dumps(ms))
+    card_state("after kernel times")
     return err, ms
+
+
+def plain_copying(torch, tk, x, dt):
+    """K1's plain version with its scale and bias copied to the card on
+    every call, as it was before ops/input_kernels.py::_device_affine kept
+    them there: each copy synchronizes the host with the card inside the
+    timed call."""
+    scale, bias = tk._affine_from_stats(MEAN, STD)
+    return (x.float() * torch.as_tensor(scale, device=x.device)
+            + torch.as_tensor(bias, device=x.device)).to(dt)
 
 
 SPLITS = (("train", 40), ("dev", 20), ("test", 50))
@@ -488,13 +541,19 @@ def training_phase(torch, work, packed):
     return out
 
 
-def warm_train_steps(torch, work, packed, n_warm=2, n_timed=5, n_prof=3):
+# warm steps: (untimed, timed, profiled) calls
+WARM_STEPS = (2, 5, 3)
+SEARCH_STEPS = (3, 20, 5)
+
+
+def warm_train_steps(torch, work, packed):
     """Steady-state train step times at full width, B=20, on the resident
     path (K2 inside the step): for f32, bf16 and remat, phase 1 (central
-    weights) and phase 2 (whole net), the median of n_timed steps after
-    n_warm, each step ended by a synchronize; peak allocated memory over
-    the timed steps. Then n_prof more steps under torch.profiler give the
-    device time per step by kernel class (profile_summary)."""
+    weights) and phase 2 (whole net), the median of the WARM_STEPS timed
+    steps after the untimed ones, each step ended by a synchronize; peak
+    allocated memory over the timed steps. Then the profiled steps under
+    torch.profiler give the device time per step by kernel class
+    (profile_summary)."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
@@ -506,6 +565,7 @@ def warm_train_steps(torch, work, packed, n_warm=2, n_timed=5, n_prof=3):
                                                   set_trainable)
 
     phase("warm train steps, full width, B=20")
+    n_warm, n_timed, n_prof = WARM_STEPS
     out = {}
     for mode, extra in (("f32", []), ("bf16", ["--bf16"]),
                         ("remat", ["--remat"])):
@@ -706,6 +766,422 @@ def card_vs_cpu(torch, packed):
                     "norm_err_card": wc, "norm_err_cpu32": wh}}
 
 
+SEARCH_ARGV = ["--device_input_normalize", "--random_backbones",
+               "--no-verbose", "--seed", str(SEED)]
+SEARCH_DEV = 60     # one dev clip of each of the 60 classes
+
+
+def write_search_store(work, packed):
+    """The search's packed store: trainexp is the train split; dev holds
+    one clip of each class. Random backbones pool nearly the same features
+    from every random clip, so a candidate predicts about one class for the
+    whole dev split and scores 0 unless that class is in it. The first
+    EPNAS step samples --num_samples of its 32 confs without replacement
+    with p ~ acc^(1/T), which fails with fewer nonzero accuracies than
+    that; with every class in dev, such a candidate scores 1/60."""
+    import numpy as np
+
+    from mfas_tpu_torch.data.ntu_pack import make_synthetic_packed_ntu
+
+    store = os.path.join(work, "search")
+    dev = os.path.join(store, "dev")
+    make_synthetic_packed_ntu(dev, n=SEARCH_DEV, frames=24, h=256, w=256,
+                              skel_frames=300, num_classes=60, seed=3)
+    np.save(os.path.join(dev, "labels.npy"),
+            np.random.RandomState(3).permutation(60).astype(np.int32))
+    os.symlink(os.path.join(packed, "train"),
+               os.path.join(store, "trainexp"))
+    return store
+
+
+def _search_run(torch, tk, seen, name, argv, want_k1, want_dtype,
+                want_candidates, capture=False):
+    """One in-process ``mfas_tpu_torch.main_searchable_ntu`` run: launch
+    counts zeroed just before and read just after; checks K1's count and
+    output dtype, the candidates trained, and that every trained conf got a
+    finite accuracy in [0, 1]. Returns the measured numbers, the run's
+    standard output when ``capture`` keeps it (else it is printed) and its
+    surrogate dataset."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from mfas_tpu_torch import main_searchable_ntu as smain
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    buf = io.StringIO()
+    tk.reset_launch_counts()
+    seen.clear()
+    with contextlib.redirect_stdout(buf) if capture else \
+            contextlib.nullcontext():
+        run = smain.main(argv)
+    counts = dict(tk.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    out = buf.getvalue()
+    accs = [a for _, entries in run.data.state() for _, a in entries]
+    # the one-row confs are the first step's, trained for real
+    first = [a for L, entries in run.data.state() if L == 1
+             for _, a in entries]
+    check(counts == {"u8_normalize": want_k1, "u8_gather_normalize": 0},
+          f"{name}: launches {counts}, want {want_k1} of u8_normalize")
+    check(seen == {("u8_normalize", want_dtype): want_k1},
+          f"{name}: kernel outputs {seen}, want {want_k1} x {want_dtype}")
+    check(run.candidates == want_candidates,
+          f"{name}: {run.candidates} candidates trained, want "
+          f"{want_candidates}")
+    check(len(run.top) == 5 and all(np.isfinite(a) and 0 <= a <= 1
+                                    for a in accs),
+          f"{name}: top {run.top}, accuracies {accs}")
+    r = {"seconds": run.seconds, "split_seconds": run.split,
+         "candidates": run.candidates,
+         "candidates_per_hour": run.candidates / run.seconds * 3600.0,
+         "peak_bytes": peak, "k1_launches": counts["u8_normalize"],
+         "k1_out": want_dtype, "confs_scored": len(accs),
+         "first_step_above_0": sum(a > 0 for a in first),
+         "first_step_distinct": len(set(first)),
+         "top5": [[c.tolist(), float(a)] for c, a in run.top]}
+    print(f"{name}: {run.candidates} candidates in {run.seconds:.1f} s, "
+          f"{r['candidates_per_hour']:.0f} candidates/hour; split (s) "
+          + ", ".join(f"{k} {v:.2f}" for k, v in run.split.items())
+          + f"; first step: {r['first_step_above_0']} of {len(first)} "
+          f"accuracies above 0, {r['first_step_distinct']} distinct"
+          + f"; peak {peak / 2**30:.2f} GiB allocated; K1 launches "
+          f"{counts['u8_normalize']} ({want_dtype} out); top-5 "
+          f"{[(c.tolist(), round(float(a), 4)) for c, a in run.top]}",
+          flush=True)
+    return r, out, run.data
+
+
+def search_phase(torch, work, packed):
+    """(s1)-(s4): the default NTU search at full width (ResNet-50 3-4-6-3 at
+    base width 64, HCN over 32 frames, every default flag of the CLI:
+    hidden 16, batch 20, 3 epochs, 15 samples, 3 iterations x 4 fusions,
+    50 surrogate epochs) through ``mfas_tpu_torch.main_searchable_ntu``, on
+    a store whose trainexp split is the train clips (40) and whose dev split
+    holds 60 clips, one of each class (write_search_store says why).
+
+    (s1) default: train-mode f32 features every train batch, dev features
+         cached; K1 runs once per train batch of every epoch of each of the
+         12 populations and once per dev batch: 2 x 3 x 12 + 3 = 75;
+    (s2) --cache_features --batchnorm: bf16 bank built once, K1 (bf16 out)
+         once per train and dev batch over the whole search: 3;
+    (s3) --weightsharing --search_iterations 1 --max_fusions 1 --epochs 1:
+         32 candidates trained one at a time, K1 in each of their batches;
+    (s4) (s2) with --search_iterations 1 --search_state F, then
+         --search_iterations 2 --resume_search: the resume line, only
+         iteration 1's four populations (60 candidates), one bank rebuild.
+    """
+    from mfas_tpu_torch.ops import input_kernels as tk
+
+    phase("NTU search, full width")
+    store = write_search_store(work, packed)
+    base = ["--packed_datadir", store, "--checkpointdir", work,
+            *SEARCH_ARGV]
+    n_train, n_dev = dict(SPLITS)["train"], SEARCH_DEV
+    bs, epochs, iters, fusions, k = 20, 3, 3, 4, 15
+    tb, db = -(-n_train // bs), -(-n_dev // bs)
+    pops = iters * fusions
+    state = os.path.join(work, "search_state.pkl")
+    f32, bf16 = "torch.float32", "torch.bfloat16"
+    seen, unwrap = _tally_out_dtypes(tk)
+    out = {}
+    try:
+        out["s1_default"], _, s1_data = _search_run(
+            torch, tk, seen, "s1 default search", base,
+            tb * epochs * pops + db, f32, 32 + (pops - 1) * k)
+        out["s2_cache_features"], _, _ = _search_run(
+            torch, tk, seen, "s2 --cache_features --batchnorm",
+            base + ["--cache_features", "--batchnorm"], tb + db, bf16,
+            32 + (pops - 1) * k)
+        out["s3_weightsharing"], _, _ = _search_run(
+            torch, tk, seen, "s3 sequential --weightsharing",
+            base + ["--weightsharing", "--search_iterations", "1",
+                    "--max_fusions", "1", "--epochs", "1"],
+            32 * (tb + db), f32, 32)
+        bank = base + ["--cache_features", "--batchnorm", "--search_state",
+                       state]
+        out["s4_first"], _, _ = _search_run(
+            torch, tk, seen, "s4 first run", bank + ["--search_iterations",
+                                                      "1"],
+            tb + db, bf16, 32 + (fusions - 1) * k)
+        verbose = [a for a in bank if a != "--no-verbose"]
+        out["s4_resume"], text, _ = _search_run(
+            torch, tk, seen, "s4 resumed run",
+            verbose + ["--search_iterations", "2", "--resume_search"],
+            tb + db, bf16, fusions * k, capture=True)
+        line = f"Resuming search after iteration 0 step {fusions - 1}"
+        check(line in text, f"s4: no '{line}' in the resumed run's output")
+        print(f"s4 resumed run printed: {line}")
+    finally:
+        unwrap()
+    s1, s2 = out["s1_default"], out["s2_cache_features"]
+    print(f"s2 vs s1: {s1['seconds'] / s2['seconds']:.2f}x faster")
+    out["busy_share"] = search_busy_share(torch, work, base)
+    out["steps"] = search_step_times(torch, work, s1_data)
+    return out
+
+
+def search_busy_share(torch, work, base):
+    """The card's busy share over a range of the default search: its first
+    two EPNAS steps (--search_iterations 1 --max_fusions 2: 32 + 15
+    candidates, two surrogate fits), run after (s1) so every program is
+    warm, once untraced and once under torch.profiler with the card's
+    activity only. profile_summary of the trace gives the device's busy
+    time and its share of the kernel span (from the first kernel of the
+    searcher's set-up to the last of the search); the two runs' wall times
+    and sections give the tracing's cost."""
+    import contextlib
+    import io
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from mfas_tpu_torch import main_searchable_ntu as smain
+
+    phase("search: the card's busy share over (s1)'s first two steps")
+    argv = base + ["--search_iterations", "1", "--max_fusions", "2"]
+    with contextlib.redirect_stdout(io.StringIO()):
+        plain = smain.main(argv)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            traced = smain.main(argv)
+    trace = os.path.join(work, "search_range.json")
+    prof.export_chrome_trace(trace)
+    p = profile_summary(trace)
+    os.remove(trace)
+    r = {"candidates": traced.candidates, "seconds_untraced": plain.seconds,
+         "split_untraced": plain.split, "seconds_traced": traced.seconds,
+         "split_traced": traced.split, "kernels": p["kernels_per_step"],
+         "device_busy_s": p["device_busy_ms"] / 1e3,
+         "span_s": p["span_ms"] / 1e3, "busy_share_of_span": p["busy_share"],
+         "by_class_s": {c: t / 1e3 for c, t in p["by_class_ms"].items()}}
+    print(f"first two steps ({r['candidates']} candidates): untraced "
+          f"{plain.seconds:.2f} s, traced {traced.seconds:.2f} s; device "
+          f"busy {r['device_busy_s']:.2f} s in {r['kernels']:.0f} kernels, "
+          f"{100 * r['busy_share_of_span']:.1f} % of the kernel span "
+          f"({r['span_s']:.2f} s); sections untraced / traced (s): "
+          + ", ".join(
+              f"{k} {plain.split[k]:.2f} / {traced.split[k]:.2f}"
+              for k in plain.split), flush=True)
+    return r
+
+
+def search_step_times(torch, work, s1_data):
+    """The search's two device loops apart, at the default search's shapes:
+    a population train step and an eval step (B=20, hidden 16, drpt 0.5,
+    f32 features; P=32 as in the first EPNAS step, P=15 as in the others)
+    and a surrogate fit step on (s1)'s final dataset (one Adam step on one
+    sequence-length group, timed in fits of 10 epochs). Each: the median
+    wall time of SEARCH_STEPS' timed calls after its untimed ones, each
+    ended by a synchronize; then its profiled calls under torch.profiler
+    give the device's busy share and kernels per step."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from mfas_tpu_torch import main_searchable_ntu as smain
+    from mfas_tpu_torch.core.optim import make_adam
+    from mfas_tpu_torch.fusion.layers import enumerate_layer_confs
+    from mfas_tpu_torch.fusion.ntu import tap_sizes
+    from mfas_tpu_torch.search import population as pop
+    from mfas_tpu_torch.search.surrogate import SimpleRecurrentSurrogate
+
+    phase("search: warm population steps and surrogate fit steps")
+    n_warm, n_timed, n_prof = SEARCH_STEPS
+    dev = torch.device("cuda")
+
+    def measure(name, fn, per=1):
+        """fn's time and device busy share, per ``per`` steps it runs."""
+        times = []
+        for _ in range(n_warm + n_timed):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        trace = os.path.join(work, "search_step.json")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n_prof):
+                fn()
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(trace)
+        p = profile_summary(trace, steps=n_prof * per)
+        os.remove(trace)
+        r = {"ms": float(np.median(times[n_warm:])) * 1e3 / per,
+             "busy_share": p["busy_share"],
+             "device_busy_ms": p["device_busy_ms"],
+             "kernels": p["kernels_per_step"]}
+        print(f"{name}: {r['ms']:.2f} ms, device busy "
+              f"{r['device_busy_ms']:.3f} ms ({100 * r['busy_share']:.0f} % "
+              f"of the kernel span), "
+              f"{r['kernels']:.0f} kernels", flush=True)
+        return r
+
+    args = smain.parse_args(SEARCH_ARGV)
+    ske, ims = tap_sizes(args)
+    spec = pop.PopulationSpec(
+        sizes_a=tuple(ske), sizes_b=tuple(ims),
+        hidden=args.inner_representation_size, num_outputs=args.num_outputs,
+        max_rows=args.max_progression_levels, drpt=args.drpt)
+    rs = np.random.RandomState(SEED)
+    rows = np.asarray(enumerate_layer_confs(4, 4, 2))
+    B = args.batchsize
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    batch = (torch.rand((B, 4, spec.cmax_a), device=dev, generator=g),
+             torch.rand((B, 4, spec.cmax_b), device=dev, generator=g),
+             torch.randn((B, 60), device=dev, generator=g),
+             torch.randn((B, 60), device=dev, generator=g),
+             torch.randint(0, 60, (B,), device=dev, generator=g),
+             torch.ones(B, device=dev))
+    out = {}
+    for P in (32, 15):
+        confs = [rows[rs.choice(32, 1 + p % 4)] for p in range(P)]
+        params, bn = pop.init_population(confs, spec, seed=SEED, device=dev)
+        opt = make_adam(params.values(), spec.weight_decay)
+        conf = pop.conf_tensors(confs, spec, dev)
+        out[f"population_train_step_P{P}"] = measure(
+            f"population train step P={P}",
+            lambda: pop.train_step(spec, params, bn, opt, conf, batch, 1e-3,
+                                   g))
+        out[f"population_eval_step_P{P}"] = measure(
+            f"population eval step P={P}",
+            lambda: pop.eval_step(spec, params, bn, conf, batch))
+
+    surrogate = SimpleRecurrentSurrogate(100, 3, 100, device=dev)
+    confs, accs = s1_data.get_data()
+    group = max(range(len(confs)), key=lambda i: confs[i].shape[1])
+    sizes = [c.shape[1] for c in confs]
+    out["surrogate_fit_step"] = measure(
+        f"surrogate fit step (length {confs[group].shape[0]}, "
+        f"{sizes[group]} confs; groups {sizes})",
+        lambda: surrogate.fit([confs[group]], [accs[group]], num_epochs=10,
+                              lr=args.lr_surrogate), per=10)
+    return out
+
+
+def search_card_vs_cpu(torch, packed):
+    """(s5) The search's device work on the card against the CPU: the
+    full-width extractor's padded taps and logits on 2 clips in f32, through
+    the population trainer's feature pass (PopulationTrainer._features: the
+    inputs prep with K1 on the card, no autograd), in eval mode and in the
+    streamed path's train mode (batch-statistic BatchNorm, the HCN's
+    Dropout2d an identity at --drpt 0), each tensor within 1e-4 of its max
+    |value|, and the train-mode pass leaving every backbone buffer
+    unchanged; one population train step at P=32, B=20, --batchnorm, drpt
+    0, the default widths, in float64: loss, corrects, every gradient,
+    parameter after Adam and BatchNorm statistic within 1e-9 of its
+    tensor's max."""
+    import numpy as np
+
+    from mfas_tpu_torch import main_searchable_ntu as smain
+    from mfas_tpu_torch.core.optim import make_adam
+    from mfas_tpu_torch.data.ntu import Compose, NormalizeLen
+    from mfas_tpu_torch.data.ntu_pack import (
+        PackedNTU, make_device_normalize_inputs_prep)
+    from mfas_tpu_torch.fusion.ntu import NTUFeatureExtractor, tap_sizes
+    from mfas_tpu_torch.fusion.layers import enumerate_layer_confs
+    from mfas_tpu_torch.search import population as pop
+
+    phase("search: card vs CPU (extractor taps f32, population step f64)")
+    args = smain.parse_args(["--packed_datadir", packed, *SEARCH_ARGV,
+                             "--batchnorm", "--drpt", "0"])
+    ske, ims = tap_sizes(args)
+    spec = pop.PopulationSpec(
+        sizes_a=tuple(ske), sizes_b=tuple(ims),
+        hidden=args.inner_representation_size, num_outputs=args.num_outputs,
+        max_rows=args.max_progression_levels, batchnorm=True, drpt=0.0)
+    ds = PackedNTU(os.path.join(packed, "dev"),
+                   Compose([NormalizeLen(args.vid_len)]), args,
+                   device_normalize=True)
+    clips = tuple(torch.from_numpy(np.stack([ds[i][k] for i in range(2)]))
+                  for k in ("rgb", "ske"))
+    feats = {}
+    for dev in ("cuda", "cpu"):
+        trainer = pop.PopulationTrainer(
+            spec, NTUFeatureExtractor(
+                args, device=dev,
+                generator=torch.Generator().manual_seed(SEED)),
+            device=dev, input_prep=make_device_normalize_inputs_prep())
+        buffers = {k: v.clone() for k, v in trainer.extractor.named_buffers()}
+        inputs = tuple(c.to(dev) for c in clips)
+        for mode in ("eval", "train"):
+            feats[mode, dev] = [t.double().cpu() for t in trainer._features(
+                inputs, mode == "train")]
+        check(all(torch.equal(v, buffers[k])
+                  for k, v in trainer.extractor.named_buffers()),
+              f"the train-mode feature pass on {dev} changed a backbone "
+              "buffer")
+        del trainer
+    tap_dev = {}
+    for mode in ("eval", "train"):
+        tap_dev[mode] = max(
+            float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+            for a, b in zip(feats[mode, "cuda"], feats[mode, "cpu"]))
+        print(f"extractor {mode} mode, 2 clips f32: largest deviation "
+              f"{tap_dev[mode]:.3e} of a tensor's max over "
+              f"{len(feats[mode, 'cpu'])} padded taps and logits")
+    print("train-mode feature pass: every backbone buffer unchanged on "
+          "both devices")
+    for mode, d in tap_dev.items():
+        check(d <= 1e-4, f"extractor {mode} mode card vs CPU: {d} of max")
+
+    rs = np.random.RandomState(SEED)
+    rows = np.asarray(enumerate_layer_confs(4, 4, 2))
+    confs = [rows[rs.choice(32, 1 + p % 4)] for p in range(32)]
+    B = 20
+    fa = np.zeros((B, 4, spec.cmax_a))
+    fb = np.zeros((B, 4, spec.cmax_b))
+    for t, sizes in ((fa, ske), (fb, ims)):
+        for i, c in enumerate(sizes):
+            t[:, i, :c] = rs.rand(B, c) * 2.0
+    batch_np = (fa, fb, rs.randn(B, 60), rs.randn(B, 60),
+                rs.randint(0, 60, B), np.r_[np.ones(B - 3), np.zeros(3)])
+    res = {}
+    for dev in ("cuda", "cpu"):
+        params, bn = pop.init_population(confs, spec, seed=SEED, device=dev)
+        params = {k: v.detach().double().requires_grad_(True)
+                  for k, v in params.items()}
+        bn = {k: v.double() for k, v in bn.items()}
+        opt = make_adam(params.values(), spec.weight_decay)
+        batch = tuple(torch.from_numpy(np.asarray(x)).to(dev)
+                      for x in batch_np)
+        t0 = time.time()
+        new_bn, loss, corr = pop.train_step(
+            spec, params, bn, opt, pop.conf_tensors(confs, spec, dev), batch,
+            1e-3)
+        out = {"loss": loss, "corrects": corr,
+               **{f"grad/{k}": p.grad for k, p in params.items()},
+               **{f"param/{k}": p.detach() for k, p in params.items()},
+               **{f"bn/{k}": v for k, v in new_bn.items()}}
+        res[dev] = {k: v.double().cpu() for k, v in out.items()}
+        print(f"population step f64 on {dev}: {time.time() - t0:.2f} s, "
+              f"mean loss {float(loss.mean()):.6f}")
+    devs = {k: float((res["cuda"][k] - v).abs().max()
+                     / v.abs().max().clamp_min(1e-30))
+            for k, v in res["cpu"].items()}
+    worst = max(devs, key=devs.get)
+    print(f"population step f64, P=32 B=20: largest deviation "
+          f"{devs[worst]:.3e} of max ({worst}) over {len(devs)} tensors")
+    check(devs[worst] <= 1e-9, f"population step card vs CPU {worst}: "
+          f"{devs[worst]} of max")
+    return {"extractor_tap_dev": tap_dev["eval"],
+            "extractor_train_mode_tap_dev": tap_dev["train"],
+            "step_f64_dev": devs[worst],
+            "step_f64_dev_tensor": worst}
+
+
+# the least time of the input kernels at (20,8,256,256,3): each uint8 byte
+# read once and each output written once at 3.35 TB/s (their 2 operations
+# per element at 67 TFLOP/s f32 take ~1 us: bytes bound them)
+HBM_BYTES_PER_S = 3.35e12
+
+
+def input_kernel_bound_ms(out_itemsize):
+    n = 1
+    for d in K1_SHAPE:
+        n *= d
+    return n * (1 + out_itemsize) / HBM_BYTES_PER_S * 1e3
+
+
 def main():
     import torch
 
@@ -751,6 +1227,9 @@ def main():
         torch.cuda.empty_cache()
         warm = warm_train_steps(torch, work, packed)
         step = card_vs_cpu(torch, packed)
+        torch.cuda.empty_cache()
+        search = search_phase(torch, work, packed)
+        search["card_vs_cpu"] = search_card_vs_cpu(torch, packed)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -762,19 +1241,33 @@ def main():
         "nvidia_smi": smi}))
     print(json.dumps({"training": train, "warm_train_steps": warm,
                       "card_vs_cpu_step": step, "nvidia_smi": smi}))
+    print(json.dumps({"search": search, "nvidia_smi": smi}))
     src = "mfas_tpu_torch/csrc/input_kernels.cu"
-    # launches: the training runs' counts, one per train, dev and test batch
+    # launches: K1's on its two main paths (streamed training, one per
+    # train, dev and test batch; the default search, s1), K2's on the
+    # resident training run. No single PyTorch call computes either kernel's
+    # function, so library_ms is null (gather + K1 stands beside K2 in the
+    # kernel_times line)
+    k1_paths = {"found_training_packed_f32": train["b_packed_f32"]["launches"],
+                "search_default_s1": search["s1_default"]["k1_launches"]}
+    bound = input_kernel_bound_ms(4)
+    f32 = ms["f32"]
+    # ms and plain_ms under the spin timer; both timers' readings beside
     print(json.dumps({"kernels": [
         {"name": "u8_normalize", "route": "cuda", "source": src,
          "replaces": "mfas_tpu/ops/input_kernels.py:71",
-         "launches": train["b_packed_f32"]["launches"],
-         "max_abs_err": err["u8_normalize"], "ms": ms["f32"]["K1"],
-         "plain_ms": ms["f32"]["K1_plain"]},
+         "launches": sum(k1_paths.values()), "launches_by_path": k1_paths,
+         "max_abs_err": err["u8_normalize"], "ms": f32["K1"]["spin"],
+         "plain_ms": f32["K1_plain"]["spin"], "bound_ms": bound,
+         "bound_by": "bytes", "library_ms": None,
+         "ms_by_timer": f32["K1"], "plain_ms_by_timer": f32["K1_plain"]},
         {"name": "u8_gather_normalize", "route": "cuda", "source": src,
          "replaces": "mfas_tpu/ops/input_kernels.py:174",
          "launches": train["a_resident_f32"]["launches"],
-         "max_abs_err": err["u8_gather_normalize"], "ms": ms["f32"]["K2"],
-         "plain_ms": ms["f32"]["K2_plain"]},
+         "max_abs_err": err["u8_gather_normalize"], "ms": f32["K2"]["spin"],
+         "plain_ms": f32["K2_plain"]["spin"], "bound_ms": bound,
+         "bound_by": "bytes", "library_ms": None,
+         "ms_by_timer": f32["K2"], "plain_ms_by_timer": f32["K2_plain"]},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

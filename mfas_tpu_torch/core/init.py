@@ -43,6 +43,22 @@ def normal(mean, std):
     return f
 
 
+def uniform(low, high):
+    def f(generator, shape, device):
+        return _uniform(generator, shape, device, low, high)
+
+    return f
+
+
+def constant(value):
+    """Every element ``value``; draws nothing from the generator."""
+    def f(generator, shape, device):
+        return torch.full(shape, float(value), dtype=torch.float32,
+                          device=device)
+
+    return f
+
+
 def zeros(generator, shape, device):
     return torch.zeros(shape, dtype=torch.float32, device=device)
 

@@ -7,8 +7,9 @@ serves both packages.
 
 ``PackedNTU(device_normalize=True)`` ships RGB as raw uint8 and leaves the
 /255 + ImageNet normalize to the card (``make_device_normalize_prep`` ->
-``u8_normalize``, kernel K1). Temporal transforms are pure slicing and
-commute with the normalize, so they still run on the host.
+``u8_normalize``, kernel K1; ``make_device_normalize_inputs_prep`` on the
+search path). Temporal transforms are pure slicing and commute with the
+normalize, so they still run on the host.
 """
 
 from __future__ import annotations
@@ -107,6 +108,29 @@ def make_device_normalize_prep(compute_dtype=None):
         else:
             batch["rgb"] = rgb.to(out_dtype)
         return batch
+
+    return prep
+
+
+def make_device_normalize_inputs_prep(compute_dtype=None):
+    """Population trainer input_prep, the search path's twin of
+    ``make_device_normalize_prep``: every uint8 (..., 3) element of the
+    inputs tuple goes through ``u8_normalize`` (K1 on the card) into
+    ``compute_dtype`` (float32 when None); any other uint8 tensor is cast to
+    float32; float tensors pass through."""
+    import torch
+
+    from mfas_tpu_torch.ops.input_kernels import u8_normalize
+
+    out_dtype = compute_dtype or torch.float32
+
+    def prep(inputs):
+        return tuple(
+            u8_normalize(x, ntu_data.IMAGENET_MEAN, ntu_data.IMAGENET_STD,
+                         out_dtype=out_dtype)
+            if (x.dtype == torch.uint8 and x.shape[-1] == 3)
+            else (x.float() if x.dtype == torch.uint8 else x)
+            for x in inputs)
 
     return prep
 

@@ -28,8 +28,9 @@ BatchNorm statistics are computed and kept in f32 (core/layers.py).
 ``remat=True`` checkpoints the model's segments (core/remat.py).
 
 Dropout draws from ``self.generator``, on the engine's device, seeded per
-epoch at ``TRAIN_SEED_OFFSET + epoch``: apart from the model's init seed
-(0), and the same at an epoch whether the run was resumed or not.
+epoch at ``seed + epoch`` (``train_track_acc``'s ``seed``, by default
+``TRAIN_SEED_OFFSET``: apart from the found CLIs' init seed 0), and the same
+at an epoch whether the run was resumed or not.
 """
 
 from __future__ import annotations
@@ -47,9 +48,11 @@ from mfas_tpu_torch.core.layers import set_dropout_generator
 from mfas_tpu_torch.core.optim import make_adam, set_lr
 from mfas_tpu_torch.data.loader import prefetch_to_device, to_device
 
-# dropout's seed at epoch 0: the found CLIs' init seed (0) plus the JAX
-# package's offset between a candidate's init and dropout seeds
-# (mfas_tpu/search/trainers.py::TRAIN_SEED_OFFSET)
+# the offset between a net's init seed and its dropout seed
+# (mfas_tpu/search/trainers.py::TRAIN_SEED_OFFSET), so the training stream
+# never replays the init stream; large, so neither the search's
+# +1-per-candidate counter nor the engine's +epoch walks an init seed onto a
+# training seed. The found CLIs (init seed 0) train at this seed.
 TRAIN_SEED_OFFSET = 1_000_003
 # the JAX engine's default coupled L2 weight decay (engine/classifier.py:90)
 WEIGHT_DECAY = 1e-4
@@ -174,11 +177,14 @@ class ClassifierEngine:
     # ---------------- host loops
     def train_track_acc(self, trainable_prefixes, dataloaders, dataset_sizes,
                         scheduler, num_epochs, print_loss=True,
-                        state_path=None, resume=False):
+                        state_path=None, resume=False,
+                        seed=TRAIN_SEED_OFFSET):
         """Train the parameters under ``trainable_prefixes`` (all when
         None) with a fresh Adam. Returns (best_dev_acc, best_state) and
         leaves the model in ``best_state``, which is the initial state when
-        no dev epoch beat 0.0. With ``state_path`` the
+        no dev epoch beat 0.0. Dropout draws from ``seed`` at epoch 0 and
+        from ``seed + epoch`` after, as the JAX engine's ``Rng(seed)`` and
+        its resume at ``Rng(seed + start_epoch)``. With ``state_path`` the
         whole training state is written after every epoch, and
         ``resume=True`` continues from it when the file exists. The call's
         TrainRecord is appended to ``self.train_records``."""
@@ -200,7 +206,7 @@ class ClassifierEngine:
 
         record = TrainRecord()
         for epoch in range(start_epoch, num_epochs):
-            self.generator.manual_seed(TRAIN_SEED_OFFSET + epoch)
+            self.generator.manual_seed(seed + epoch)
             for phase in ("train", "dev"):
                 train = phase == "train"
                 model.train(train)

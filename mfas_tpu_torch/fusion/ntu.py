@@ -7,7 +7,9 @@ mfas_tpu/fusion/ntu.py).
     GlobalPooling2D per tap, optional alpha gates, progressive Linear fusion
     chain, final classifier. The multitask forward returns
     (fused_logits, visual_logits, skel_logits).
-  * the search space: 4*4*2 = 32 one-row unfoldings.
+  * the search space: 4*4*2 = 32 one-row unfoldings;
+  * NTUFeatureExtractor: the two backbones alone, returning their pooled
+    taps and logits (the population trainer's frozen features).
 """
 
 from __future__ import annotations
@@ -96,3 +98,24 @@ class Searchable_Skeleton_Image_Net(nn.Module):
 def get_possible_layer_configurations(progression_index=None):
     """32 rows: ske in [0,4), rgb in [0,4), act in [0,2)."""
     return enumerate_layer_confs(4, 4, 2)
+
+
+class NTUFeatureExtractor(nn.Module):
+    """Frozen-backbone tap extractor for the population trainer: returns
+    (ske taps, rgb taps, rgb logits, ske logits) with GlobalPooling2D
+    applied, so the Visual/Skeleton forward runs once per batch for the
+    whole candidate population. ``state_dict`` keys are ``rgbnet.*`` and
+    ``skenet.*``, as in the searchable net."""
+
+    def __init__(self, args, *, device, generator):
+        super().__init__()
+        self.rgbnet = Visual(args, device=device, generator=generator)
+        self.skenet = Skeleton(args, device=device, generator=generator)
+
+    def forward(self, inputs):
+        image, skeleton = inputs
+        vis = self.rgbnet(image)
+        ske_hidden, skel_logits = self.skenet(skeleton)
+        taps_v = [F.global_avg_pool2d(t) for t in vis[1:5]]
+        taps_s = [F.global_avg_pool2d(t) for t in ske_hidden[-4:]]
+        return taps_s, taps_v, vis[-1], skel_logits

@@ -19,6 +19,7 @@ its main path went through the kernels.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import subprocess
@@ -47,6 +48,16 @@ def _affine_from_stats(mean, std):
     scale = 1.0 / (255.0 * std)
     bias = -mean / std
     return scale, bias
+
+
+@functools.lru_cache(maxsize=None)
+def _device_affine(mean, std, device):
+    """scale and bias as (3,) float32 tensors on ``device``, copied there
+    once per (stats, device): a host-to-card copy per call would
+    synchronize the host with the card inside every plain call."""
+    scale, bias = _affine_from_stats(mean, std)
+    return (torch.as_tensor(scale, device=device),
+            torch.as_tensor(bias, device=device))
 
 
 def linspace_frame_indices(num_frames, out_frames):
@@ -80,11 +91,10 @@ def _check_three_channels(x, mean, std, name):
 def u8_normalize_plain(x, mean, std, frame_indices=None,
                        out_dtype=torch.float32):
     _check_three_channels(x, mean, std, "u8_normalize")
-    scale, bias = _affine_from_stats(mean, std)
     if frame_indices is not None:
         x = x.index_select(1, _frame_index(frame_indices, x))
-    scale = torch.as_tensor(scale, device=x.device)
-    bias = torch.as_tensor(bias, device=x.device)
+    scale, bias = _device_affine(tuple(np.ravel(mean).tolist()),
+                                 tuple(np.ravel(std).tolist()), x.device)
     return (x.float() * scale + bias).to(out_dtype)
 
 

@@ -72,3 +72,25 @@ def state_dict_from_numpy(flat: dict) -> dict:
             a = a.astype(np.int64)
         out[k] = torch.from_numpy(a)
     return out
+
+
+def nest_tree(flat: dict) -> dict:
+    """{"a.b.c": x} -> {"a": {"b": {"c": x}}}: the JAX package's nested
+    parameter trees, as search states and shared weights store them."""
+    out = {}
+    for path, v in flat.items():
+        node = out
+        *parents, leaf = path.split(".")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    return out
+
+
+def flatten_tree(tree: dict, prefix="") -> dict:
+    """The inverse of ``nest_tree``: dotted paths, as a ``state_dict``."""
+    out = {}
+    for k, v in tree.items():
+        p = f"{prefix}.{k}" if prefix else k
+        out.update(flatten_tree(v, p) if isinstance(v, dict) else {p: v})
+    return out

@@ -1,12 +1,34 @@
 """``--profile_dir`` (port of mfas_tpu/runtime/profiler.py): an opt-in
-``torch.profiler`` trace of the run, while the CLI keeps its summary lines."""
+``torch.profiler`` trace of the run, while the CLI keeps its summary lines.
+``SectionTimer`` splits a run's wall time into named sections."""
 
 from __future__ import annotations
 
 import contextlib
 import os
+import time
 
 import torch
+
+
+class SectionTimer:
+    """Wall seconds per named section. On a CUDA device each section ends
+    with a synchronize, so it holds the device work it launched."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.seconds = {}
+
+    @contextlib.contextmanager
+    def section(self, name):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self.seconds[name] = (self.seconds.get(name, 0.0)
+                                  + time.perf_counter() - t0)
 
 
 @contextlib.contextmanager

@@ -1,0 +1,182 @@
+"""Candidate trainers: the ``train_sampled_fun`` implementations handed to
+the searcher (port of mfas_tpu/search/trainers.py, NTU part).
+
+  * ``PopulationSearchTrainer`` (default): all K candidates train together
+    in one batched step over frozen-backbone features (search/population.py).
+  * ``SequentialSearchTrainer``: one candidate at a time, each a fresh
+    ``Searchable_Skeleton_Image_Net`` with the searcher's backbone weights,
+    trained through ``engine/classifier.py::ClassifierEngine`` on its central
+    weights; the weight-sharing path.
+
+Shared weights are stored as nested dicts of numpy arrays keyed
+'{i}.L_{in}_{out}.A_{act}' -> {"0": {weight, bias}, "2": {BatchNorm}}, the
+layout of the JAX package and of ``population.extract_shared_states``.
+"""
+
+from __future__ import annotations
+
+import contextlib
+
+import numpy as np
+import torch
+
+from mfas_tpu_torch.core.sched import LRCosineAnnealingScheduler
+# TRAIN_SEED_OFFSET, the offset between a candidate's init seed and its
+# dropout seed, lives with the engine that seeds dropout
+from mfas_tpu_torch.engine.classifier import (TRAIN_SEED_OFFSET,
+                                              ClassifierEngine)
+from mfas_tpu_torch.fusion.layers import shared_weight_key
+from mfas_tpu_torch.runtime.checkpoint import flatten_tree, nest_tree
+from mfas_tpu_torch.search.population import PopulationTrainer
+
+
+def _layer_key(model, idx):
+    lin = model.fusion_layers[idx][0]
+    return shared_weight_key(idx, lin.weight.shape[1], lin.weight.shape[0],
+                             model.conf[idx][2])
+
+
+def get_central_states(model, state_dict, verbose=True):
+    """Store each fusion layer's state under its shape/activation key."""
+    for idx in range(len(model.fusion_layers)):
+        name = _layer_key(model, idx)
+        if verbose:
+            print(("Updating" if name in state_dict else "Creating")
+                  + " shared weight with ID: {}".format(name))
+        state_dict[name] = nest_tree(
+            {k: v.detach().cpu().numpy().copy()
+             for k, v in model.fusion_layers[idx].state_dict().items()})
+    return state_dict
+
+
+def set_central_states(model, state_dict, verbose=True):
+    """Load stored fusion-layer states into ``model`` where keys match."""
+    for idx in range(len(model.fusion_layers)):
+        name = _layer_key(model, idx)
+        if name in state_dict:
+            layer = model.fusion_layers[idx]
+            layer.load_state_dict(
+                {k: torch.as_tensor(np.asarray(v))
+                 for k, v in flatten_tree(state_dict[name]).items()},
+                strict=True)
+            if verbose:
+                print("Loaded shared weight with ID: {}".format(name))
+
+
+class SequentialSearchTrainer:
+    """One candidate at a time, like the reference loop."""
+
+    def __init__(self, backbone_states: dict, input_keys, *, device,
+                 batch_prep=None, timer=None):
+        """backbone_states: attribute name -> state_dict, e.g.
+        {'rgbnet': ..., 'skenet': ...}, loaded into every candidate.
+        batch_prep: the engine's on-device batch transform (K1)."""
+        self.backbone_states = backbone_states
+        self.input_keys = tuple(input_keys)
+        self.device = torch.device(device)
+        self._seed = 0      # +1 per candidate; a search state keeps it
+        self.batch_prep = batch_prep
+        self.timer = timer
+        self.candidates_trained = 0
+
+    def __call__(self, sampled_configurations, searchable_type, dataloaders,
+                 args, device=None, state_dict=None):
+        state_dict = {} if state_dict is None else state_dict
+        sizes = {k: dl.dataset_size for k, dl in dataloaders.items()}
+        nbpe = sizes["train"] / args.batchsize
+
+        accs = []
+        for configuration in sampled_configurations:
+            self._seed += 1
+            model = searchable_type(
+                args, configuration, device=self.device,
+                generator=torch.Generator().manual_seed(self._seed))
+            for attr, state in self.backbone_states.items():
+                getattr(model, attr).load_state_dict(state, strict=True)
+            if args.weightsharing:
+                set_central_states(model, state_dict, verbose=args.verbose)
+
+            if args.verbose:
+                print("Now training: ")
+                print(configuration)
+
+            engine = ClassifierEngine(model, self.device,
+                                      multitask=args.multitask,
+                                      input_keys=self.input_keys,
+                                      batch_prep=self.batch_prep)
+            scheduler = LRCosineAnnealingScheduler(
+                args.eta_max, args.eta_min, args.Ti, args.Tm, nbpe)
+            with (self.timer.section("sequential candidates")
+                  if self.timer is not None else contextlib.nullcontext()):
+                best_acc, _ = engine.train_track_acc(
+                    model.central_params(), dataloaders, sizes, scheduler,
+                    num_epochs=args.epochs,
+                    seed=self._seed + TRAIN_SEED_OFFSET,
+                    print_loss=args.verbose)
+            # train_track_acc leaves the model in its best-dev state
+            if args.weightsharing:
+                get_central_states(model, state_dict, verbose=args.verbose)
+            accs.append(float(best_acc))
+            self.candidates_trained += 1
+        return accs
+
+
+class PopulationSearchTrainer:
+    """All candidates at once over shared frozen-backbone features."""
+
+    def __init__(self, spec, extractor, input_keys, *, device,
+                 sequential_fallback=None, input_prep=None,
+                 cache_features=False, fused_epochs=True, bank_batch=None,
+                 int8_bank=False, timer=None):
+        self.spec = spec
+        self.input_keys = tuple(input_keys)
+        self._seed = 0      # +1 per population; a search state keeps it
+        self.trainer = PopulationTrainer(
+            spec, extractor, device=device, input_prep=input_prep,
+            cache_train_features=cache_features, fused_epochs=fused_epochs,
+            bank_batch=bank_batch, int8_bank=int8_bank, timer=timer)
+        self.sequential_fallback = sequential_fallback
+        self.candidates_trained = 0
+
+    def __call__(self, sampled_configurations, searchable_type, dataloaders,
+                 args, device=None, state_dict=None):
+        shared = None
+        if args.weightsharing:
+            if args.population_weightsharing:
+                # approximate mode: inject before / extract after the whole
+                # population
+                shared = state_dict if state_dict is not None else {}
+            else:
+                # faithful path: sequential candidate-to-candidate sharing
+                if self.sequential_fallback is None:
+                    raise ValueError(
+                        "weightsharing requires a sequential fallback trainer")
+                # ONE candidate-seed counter: a resumed search restores
+                # _seed on this wrapper, so the fallback consumes it
+                fb = self.sequential_fallback
+                fb._seed = self._seed
+                before = fb.candidates_trained
+                try:
+                    return fb(sampled_configurations, searchable_type,
+                              dataloaders, args, device,
+                              state_dict=state_dict)
+                finally:
+                    self._seed = fb._seed
+                    self.candidates_trained += fb.candidates_trained - before
+
+        sizes = {k: dl.dataset_size for k, dl in dataloaders.items()}
+        scheduler = LRCosineAnnealingScheduler(
+            args.eta_max, args.eta_min, args.Ti, args.Tm,
+            sizes["train"] / args.batchsize)
+        if args.verbose:
+            print("Now training population of {} candidates:".format(
+                len(sampled_configurations)))
+            for c in sampled_configurations:
+                print(np.asarray(c).tolist())
+        self._seed += 1
+        accs, _, _ = self.trainer.train_population(
+            sampled_configurations, dataloaders, sizes, scheduler,
+            num_epochs=args.epochs, input_keys=self.input_keys,
+            seed=self._seed, verbose=args.verbose, shared_state_dict=shared)
+        self.candidates_trained += len(sampled_configurations)
+        return accs

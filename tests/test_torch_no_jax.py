@@ -33,5 +33,13 @@ def test_port_imports_neither_jax_nor_mfas_tpu():
     for name in ("mfas_tpu_torch.main_found_ntu",
                  "mfas_tpu_torch.ops.input_kernels",
                  "mfas_tpu_torch.data.resident",
-                 "mfas_tpu_torch.engine.classifier"):
+                 "mfas_tpu_torch.engine.classifier",
+                 "mfas_tpu_torch.main_searchable_ntu",
+                 "mfas_tpu_torch.core.rnn",
+                 "mfas_tpu_torch.search.tools",
+                 "mfas_tpu_torch.search.surrogate",
+                 "mfas_tpu_torch.search.population",
+                 "mfas_tpu_torch.search.trainers",
+                 "mfas_tpu_torch.search.searcher",
+                 "mfas_tpu_torch.search.searchers"):
         assert name in res["modules"]
