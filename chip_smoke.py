@@ -60,15 +60,29 @@
    on 2 clips in f32, eval mode and the streamed path's train mode, within
    1e-4 of each tensor's max, every backbone buffer unchanged; one
    population step (P=32, B=20, --batchnorm) in f64 within 1e-9 of each
-   tensor's max.
+   tensor's max;
+12. the AV-MNIST vertical at full width (GP_LeNet_Deeper at --channels 32
+   on 112x112 spectrograms, GP_LeNet on 28x28 digits, B=128) on synthetic
+   stores written on the card (avmnist_phase): (v1) found conf 0 trained
+   for one epoch per phase through ``mfas_tpu_torch.main_found_avmnist`` on
+   55,000 train + 10,000 test samples with --save_checkpoint, whose
+   --test_cp must print the same Model Acc, then warm phase-2 steps timed
+   and profiled; on 7,200 train samples through
+   ``mfas_tpu_torch.main_searchable_avmnist``: (v2) the default EPNAS
+   search (195 candidates; the first step's accuracies not all equal, the
+   best above 0.2), (v3) --cache_features, (v4) --randsearch written after
+   its first iteration and resumed; (v5) the extractor's taps card against
+   CPU in f32 (1e-4 of max, buffers unchanged) and one found phase-2 step in
+   f64 (1e-3 of max). Neither input kernel may launch on this path.
 
 mfas_tpu_torch/scripts/archive_smoke.sh runs this script from a git archive
 of the tree and alone in an empty directory.
 
 TF32 is off throughout. Any failed check exits non-zero. Before the last
-lines come {"slice": ...}, {"training": ...} and {"search": ...} with the
-measured numbers; then {"kernels": [...]} with each kernel's launches on the
-main paths, time, plain version's time and bound; the last line is
+lines come {"slice": ...}, {"training": ...}, {"search": ...} and
+{"avmnist": ...} with the measured numbers; then {"kernels": [...]} with
+each kernel's launches on the main paths, time, plain version's time and
+bound; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero.
 """
 
@@ -1169,6 +1183,422 @@ def search_card_vs_cpu(torch, packed):
             "step_f64_dev_tensor": worst}
 
 
+# AV-MNIST: the found-training store at the reference's split sizes
+# (train 55,000, so the CLI takes dev = train[50000:55000]; test 10,000),
+# the search's store cut to 7,200 train samples (6,300 train and 900 dev
+# rows by the CLI's n//8 rule)
+AV_FOUND_STORE = (55000, 10000)
+AV_SEARCH_STORE = (7200, 16)
+AV_CHUNK = 5000
+AV_LABEL_STEP = 0.08        # make_synthetic_avmnist's image shift per class
+AV_FOUND_ARGV = ["--conf", "0", "--random_backbones", "--epochs", "1"]
+AV_SEARCH_ARGV = ["--random_backbones", "--no-verbose", "--seed", str(SEED)]
+AV_WARM = (3, 20, 3)        # warm phase-2 steps: untimed, timed, profiled
+
+
+def write_avmnist_store(torch, root, n_train, n_test, seed):
+    """A synthetic AV-MNIST store in the on-disk layout of
+    mfas_tpu_torch/data/avmnist.py, with make_synthetic_avmnist's
+    distribution (labels uniform over 10 classes; audio U(0, 0.1); image
+    U(0, 1) + AV_LABEL_STEP x label), drawn on the card in chunks of
+    AV_CHUNK rows and written through memory maps (the train audio of the
+    found store alone is 2.76 GB)."""
+    import numpy as np
+
+    t0 = time.time()
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    for sub in ("audio", "images"):
+        os.makedirs(os.path.join(root, sub))
+    for split, n in (("train", n_train), ("test", n_test)):
+        labels = torch.randint(0, 10, (n,), device="cuda", generator=g)
+        np.save(os.path.join(root, f"{split}_labels.npy"),
+                labels.cpu().numpy())
+        audio = np.lib.format.open_memmap(
+            os.path.join(root, "audio", f"{split}_data.npy"), mode="w+",
+            dtype=np.float32, shape=(n, 112, 112))
+        image = np.lib.format.open_memmap(
+            os.path.join(root, "images", f"{split}_data.npy"), mode="w+",
+            dtype=np.float32, shape=(n, 784))
+        for lo in range(0, n, AV_CHUNK):
+            hi = min(n, lo + AV_CHUNK)
+            audio[lo:hi] = (torch.rand((hi - lo, 112, 112), device="cuda",
+                                       generator=g) * 0.1).cpu().numpy()
+            image[lo:hi] = (torch.rand((hi - lo, 784), device="cuda",
+                                       generator=g)
+                            + labels[lo:hi, None] * AV_LABEL_STEP
+                            ).cpu().numpy()
+        audio.flush()
+        image.flush()
+        del audio, image
+    print(f"AV-MNIST store {n_train} train + {n_test} test written in "
+          f"{time.time() - t0:.1f} s")
+    return root
+
+
+def _quiet(fn, *a, **k):
+    """fn's result and its standard output."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*a, **k)
+    return out, buf.getvalue()
+
+
+def avmnist_found(torch, work, store):
+    """(v1) ``mfas_tpu_torch.main_found_avmnist`` at full width (GP_LeNet_
+    Deeper at --channels 32 on 112x112 spectrograms, GP_LeNet on 28x28
+    digits, hidden 256, B=128, conf 0, random weights from seed 0) with
+    --epochs 1 --save_checkpoint on the 55,000-sample store, then
+    --test_cp of the saved file, which must print the same Model Acc
+    without training."""
+    import numpy as np
+
+    from mfas_tpu_torch import main_found_avmnist as fmain
+    from mfas_tpu_torch.data.avmnist import train_dev_split
+
+    phase("AV-MNIST (v1) found training, full width")
+    base = ["--datadir", store, "--checkpointdir", work, *AV_FOUND_ARGV]
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    run, out = _quiet(fmain.main, base + ["--save_checkpoint"])
+    seconds = time.time() - t0
+    n_train = train_dev_split(AV_FOUND_STORE[0])[0]
+    losses = [e["loss"] for r in run.train for e in r.epochs]
+    check([r.train_clips for r in run.train] == [n_train, n_train],
+          f"v1: train clips {[r.train_clips for r in run.train]}")
+    check(all(np.isfinite(losses)) and np.isfinite(run.acc)
+          and 0 <= run.acc <= 1, f"v1: losses {losses}, acc {run.acc}")
+    check(run.saved and os.path.exists(run.saved), "v1: no checkpoint")
+    again, out2 = _quiet(fmain.main, base + [
+        "--test_cp", os.path.basename(run.saved)])
+    check(again.train == [] and "Pretraining" not in out2,
+          "v1: --test_cp trained")
+    check(again.acc == run.acc, f"v1: --test_cp Model Acc {again.acc}, the "
+          f"trained run's {run.acc}")
+    r = {"seconds": seconds, "model_acc": run.acc,
+         "test_cp_model_acc": again.acc,
+         "epochs": [dict(e, phase_run=i) for i, t in enumerate(run.train)
+                    for e in t.epochs],
+         "train_clips_per_s": [t.train_clips / t.train_seconds
+                               for t in run.train],
+         "train_peak_bytes": run.train_peak_bytes,
+         "eval_clips_per_s": run.eval.clips / run.eval.seconds,
+         "test_cp_eval_clips_per_s": again.eval.clips / again.eval.seconds,
+         "checkpoint": os.path.basename(run.saved)}
+    print(f"v1: {seconds:.1f} s; phase 1 / phase 2 train clips/s "
+          f"{r['train_clips_per_s'][0]:.0f} / {r['train_clips_per_s'][1]:.0f}"
+          f" (whole epochs, loader included), peak "
+          + " / ".join(f"{b / 2**30:.2f}" for b in run.train_peak_bytes)
+          + f" GiB; Model Acc {run.acc}, --test_cp {again.acc}; eval "
+          f"{r['eval_clips_per_s']:.0f} clips/s; epochs "
+          + ", ".join(f"{e['phase']} {e['loss']:.4f}/{e['acc']:.4f}"
+                      for e in r["epochs"]), flush=True)
+    return r
+
+
+def avmnist_warm_steps(torch, work, store):
+    """Warm phase-2 train steps of the (v1) net on one placed batch of 128
+    (median of AV_WARM's timed steps after its untimed ones, each ended by
+    a synchronize), peak allocated memory over them, then profiled steps
+    (device time by kernel class, busy share); and the host side apart: the
+    train ArrayLoader's batches (fancy index of 128 rows, 6.8 MB) placed on
+    the card, per batch."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from mfas_tpu_torch import main_found_avmnist as fmain
+    from mfas_tpu_torch.core.optim import make_adam
+    from mfas_tpu_torch.data.avmnist import load_avmnist_arrays
+    from mfas_tpu_torch.data.loader import ArrayLoader
+    from mfas_tpu_torch.engine.classifier import (WEIGHT_DECAY,
+                                                  ClassifierEngine,
+                                                  place_batch, set_trainable)
+
+    phase("AV-MNIST warm phase-2 steps, full width, B=128")
+    n_warm, n_timed, n_prof = AV_WARM
+    args = fmain.parse_args(["--datadir", store, *AV_FOUND_ARGV])
+    arrays = load_avmnist_arrays(store, "train")
+    loader = ArrayLoader(arrays, args.batchsize, shuffle=True,
+                         indices=np.arange(0, 50000))
+    it = iter(loader)
+    times = []
+    for _ in range(n_warm + n_timed):
+        t0 = time.perf_counter()
+        batch = place_batch(next(it), "cuda")
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    loader_ms = float(np.median(times[n_warm:])) * 1e3
+
+    model = fmain.build_model(args, fmain.FOUND_CONFS[0], "cuda")
+    engine = ClassifierEngine(model, "cuda", multitask=args.multitask,
+                              input_keys=("image", "audio"))
+    set_trainable(model, None)
+    model.train()
+    opt = make_adam(model.parameters(), WEIGHT_DECAY)
+    times = []
+    for i in range(n_warm + n_timed):
+        if i == n_warm:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss, _ = engine._train_step(batch, opt, args.eta_max)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        check(np.isfinite(float(loss)), f"AV-MNIST warm step: loss {loss}")
+    ms = float(np.median(times[n_warm:])) * 1e3
+    r = {"step_ms": ms, "train_clips_per_s": args.batchsize / ms * 1e3,
+         "peak_bytes": torch.cuda.max_memory_allocated(),
+         "step_ms_all": [t * 1e3 for t in times],
+         "loader_batch_ms": loader_ms}
+    trace = os.path.join(work, "avmnist_warm.json")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_prof):
+            engine._train_step(batch, opt, args.eta_max)
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(trace)
+    r["profile"] = p = profile_summary(trace, steps=n_prof)
+    os.remove(trace)
+    r["card_state"] = card_state("after AV-MNIST warm steps")
+    print(f"AV-MNIST warm phase 2: {ms:.2f} ms/step, "
+          f"{r['train_clips_per_s']:.0f} train clips/s, peak "
+          f"{r['peak_bytes'] / 2**30:.2f} GiB; device busy "
+          f"{p['device_busy_ms']:.2f} ms ({100 * p['busy_share']:.0f} % of "
+          f"the kernel span), {p['kernels_per_step']:.0f} kernels; "
+          + ", ".join(f"{c} {t:.2f}" for c, t in p["by_class_ms"].items())
+          + f"; ArrayLoader batch placed on the card {loader_ms:.2f} ms",
+          flush=True)
+    del model, engine, opt, batch, arrays
+    torch.cuda.empty_cache()
+    return r
+
+
+def _avmnist_search(torch, name, argv, want_candidates):
+    """One in-process ``mfas_tpu_torch.main_searchable_avmnist`` run: the
+    candidates trained, every accuracy finite in [0, 1]; returns the
+    measured numbers, the run and its standard output."""
+    import numpy as np
+
+    from mfas_tpu_torch import main_searchable_avmnist as smain
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    run, out = _quiet(smain.main, argv)
+    peak = torch.cuda.max_memory_allocated()
+    accs = [a for _, entries in run.data.state() for _, a in entries]
+    first = [a for L, entries in run.data.state() if L == 1
+             for _, a in entries]
+    check(run.candidates == want_candidates,
+          f"{name}: {run.candidates} candidates, want {want_candidates}")
+    check(all(np.isfinite(a) and 0 <= a <= 1 for a in accs),
+          f"{name}: accuracies {accs}")
+    r = {"seconds": run.seconds, "split_seconds": run.split,
+         "candidates": run.candidates,
+         "candidates_per_hour": run.candidates / run.seconds * 3600.0,
+         "peak_bytes": peak, "confs_scored": len(accs),
+         "best_acc": max(accs), "first_step_distinct": len(set(first)),
+         "first_step_min_max": [min(first), max(first)] if first else None,
+         "top5": [[c.tolist(), float(a)] for c, a in run.top]}
+    print(f"{name}: {run.candidates} candidates in {run.seconds:.1f} s, "
+          f"{r['candidates_per_hour']:.0f} candidates/hour; split (s) "
+          + ", ".join(f"{k} {v:.2f}" for k, v in run.split.items())
+          + f"; best acc {r['best_acc']:.4f}; one-row confs "
+          f"{len(first)} ({r['first_step_distinct']} distinct accuracies"
+          + (f", {min(first):.4f}-{max(first):.4f}" if first else "")
+          + f"); peak {peak / 2**30:.2f} GiB allocated; top-5 "
+          f"{[(c.tolist(), round(float(a), 4)) for c, a in run.top]}",
+          flush=True)
+    return r, run, out
+
+
+def avmnist_search(torch, work, store):
+    """(v2) the default EPNAS search (--channels 32, hidden 16, B=128, 3
+    epochs, 15 samples, 3 iterations x 4 fusions: 30 + 11 x 15 = 195
+    candidates) on streamed train-mode features; its first step's 30
+    accuracies must not all be equal and its best accuracy must beat 0.2
+    (chance is 0.1). (v3) the same with --cache_features (bf16 bank).
+    (v4) --randsearch --search_iterations 1 (4 iterations of 15), its
+    state copied after the first iteration, then resumed from that copy in
+    a fresh main call: the resume line, the 3 remaining iterations, and
+    the uninterrupted run's confs and accuracies."""
+    import numpy as np
+
+    from mfas_tpu_torch.search import searcher as tsearcher
+
+    phase("AV-MNIST (v2)-(v4) search, full width")
+    base = ["--datadir", store, "--checkpointdir", work, *AV_SEARCH_ARGV]
+    out = {}
+    r, run, _ = _avmnist_search(torch, "v2 default search", base, 195)
+    first = [a for L, e in run.data.state() if L == 1 for _, a in e]
+    check(len(first) == 30 and r["first_step_distinct"] > 1,
+          f"v2: first step accuracies {first} all equal")
+    check(r["best_acc"] > 0.2, f"v2: best accuracy {r['best_acc']} <= 0.2")
+    out["v2_default"] = r
+    out["v3_cache_features"], _, _ = _avmnist_search(
+        torch, "v3 --cache_features", base + ["--cache_features"], 195)
+
+    state = os.path.join(work, "avmnist_rand.pkl")
+    first_state = state + ".first"
+    rand = base + ["--randsearch", "--search_iterations", "1",
+                   "--search_state", state]
+    orig = tsearcher.ModelSearcher._save_state
+
+    def save(self, path, *a, **k):
+        orig(self, path, *a, **k)
+        if path and not os.path.exists(first_state):
+            shutil.copy(path, first_state)
+
+    tsearcher.ModelSearcher._save_state = save
+    try:
+        out["v4_randsearch"], full, _ = _avmnist_search(
+            torch, "v4 --randsearch", rand, 60)
+    finally:
+        tsearcher.ModelSearcher._save_state = orig
+    resume = [a for a in base if a != "--no-verbose"] + [
+        "--randsearch", "--search_iterations", "1", "--search_state",
+        first_state, "--resume_search"]
+    out["v4_resumed"], resumed, text = _avmnist_search(
+        torch, "v4 resumed", resume, 45)
+    line = "Resuming random search after iteration 0"
+    check(line in text, f"v4: no '{line}' in the resumed run's output")
+
+    def pairs(data):
+        return {np.asarray(c).tobytes(): a for _, e in data.state()
+                for c, a in e}
+
+    want, got = pairs(full.data), pairs(resumed.data)
+    check(got.keys() == want.keys(), "v4: the resumed run trained other "
+          "confs than the uninterrupted one")
+    diff = max(abs(got[k] - want[k]) for k in want)
+    out["v4_resumed"]["max_acc_diff_vs_uninterrupted"] = diff
+    print(f"v4 resumed run printed '{line}'; its confs are the "
+          f"uninterrupted run's, accuracies within {diff:.3e}")
+    check(diff <= 1.0 / 900 + 1e-7, f"v4: resumed accuracies differ by "
+          f"{diff} from the uninterrupted run's")
+    return out
+
+
+def avmnist_card_vs_cpu(torch, store):
+    """(v5) The AV-MNIST device work on the card against the CPU, at full
+    width: the extractor's padded taps and logits on 4 samples in f32,
+    through PopulationTrainer._features, in eval mode and in the streamed
+    path's train mode (batch-statistic BatchNorm), each tensor within 1e-4
+    of its max |value|, every backbone buffer unchanged on both devices;
+    one found phase-2 step of Searchable_Audio_Image_Net conf 0 (hidden
+    256, --drpt 0, multitask) on 8 samples in float64, every gradient
+    within 1e-3 of its tensor's max."""
+    import numpy as np
+
+    from mfas_tpu_torch import main_found_avmnist as fmain
+    from mfas_tpu_torch import main_searchable_avmnist as smain
+    from mfas_tpu_torch.core.optim import make_adam
+    from mfas_tpu_torch.data.avmnist import load_avmnist_arrays
+    from mfas_tpu_torch.engine.classifier import (WEIGHT_DECAY,
+                                                  ClassifierEngine,
+                                                  set_trainable)
+    from mfas_tpu_torch.fusion.avmnist import (AVMnistFeatureExtractor,
+                                               tap_sizes)
+    from mfas_tpu_torch.search import population as pop
+
+    phase("AV-MNIST (v5) card vs CPU (extractor taps f32, found step f64)")
+    arrays = load_avmnist_arrays(store, "train")
+    args = smain.parse_args(["--datadir", store, *AV_SEARCH_ARGV])
+    aud, ims = tap_sizes(args)
+    spec = pop.PopulationSpec(
+        sizes_a=tuple(aud), sizes_b=tuple(ims),
+        hidden=args.inner_representation_size, num_outputs=args.num_outputs,
+        max_rows=args.max_progression_levels)
+    clips = tuple(torch.from_numpy(arrays[k][:4]) for k in ("image", "audio"))
+    feats = {}
+    for dev in ("cuda", "cpu"):
+        trainer = pop.PopulationTrainer(
+            spec, AVMnistFeatureExtractor(
+                args, device=dev,
+                generator=torch.Generator().manual_seed(SEED)), device=dev)
+        buffers = {k: v.clone() for k, v in trainer.extractor.named_buffers()}
+        inputs = tuple(c.to(dev) for c in clips)
+        for mode in ("eval", "train"):
+            feats[mode, dev] = [t.double().cpu() for t in trainer._features(
+                inputs, mode == "train")]
+        check(all(torch.equal(v, buffers[k])
+                  for k, v in trainer.extractor.named_buffers()),
+              f"AV-MNIST train-mode feature pass on {dev} changed a buffer")
+        del trainer
+    tap_dev = {}
+    for mode in ("eval", "train"):
+        tap_dev[mode] = max(
+            float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+            for a, b in zip(feats[mode, "cuda"], feats[mode, "cpu"]))
+        print(f"AV-MNIST extractor {mode} mode, 4 samples f32: largest "
+              f"deviation {tap_dev[mode]:.3e} of a tensor's max")
+    for mode, d in tap_dev.items():
+        check(d <= 1e-4, f"AV-MNIST extractor {mode} card vs CPU: {d}")
+
+    fargs = fmain.parse_args(["--datadir", store, *AV_FOUND_ARGV,
+                              "--drpt", "0"])
+    n = 8
+    batch = {"image": torch.from_numpy(arrays["image"][:n]).double(),
+             "audio": torch.from_numpy(arrays["audio"][:n]).double(),
+             "label": torch.from_numpy(arrays["label"][:n]),
+             "_mask": torch.ones(n, dtype=torch.float64)}
+    grads, losses = {}, {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.time()
+        model = fmain.build_model(fargs, fmain.FOUND_CONFS[0], dev).double()
+        engine = ClassifierEngine(model, dev, multitask=fargs.multitask,
+                                  input_keys=("image", "audio"))
+        set_trainable(model, None)
+        model.train()
+        opt = make_adam(model.parameters(), WEIGHT_DECAY)
+        loss, _ = engine._train_step({k: v.to(dev) for k, v in batch.items()},
+                                     opt, fargs.eta_max)
+        losses[dev] = float(loss)
+        grads[dev] = {k: p.grad.detach().cpu().double()
+                      for k, p in model.named_parameters()
+                      if p.grad is not None}
+        print(f"AV-MNIST found step f64 on {dev}: loss {losses[dev]:.12f}, "
+              f"{len(grads[dev])} grads, {time.time() - t0:.1f} s")
+        del model, engine, opt
+    check(grads["cuda"].keys() == grads["cpu"].keys(),
+          "AV-MNIST found step: the two devices differ in gradients")
+    devs = {k: float((grads["cuda"][k] - v).abs().max()
+                     / v.abs().max().clamp_min(1e-30))
+            for k, v in grads["cpu"].items()}
+    worst = max(devs, key=devs.get)
+    loss_rel = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
+    print(f"AV-MNIST found step f64, 8 samples: loss {loss_rel:.3e} "
+          f"relative; largest gradient deviation {devs[worst]:.3e} of max "
+          f"({worst}) over {len(devs)} tensors")
+    check(devs[worst] <= 1e-3, f"AV-MNIST found step card vs CPU {worst}: "
+          f"{devs[worst]} of max")
+    torch.cuda.empty_cache()
+    return {"extractor_tap_dev": tap_dev["eval"],
+            "extractor_train_mode_tap_dev": tap_dev["train"],
+            "found_step_f64_grad_dev": devs[worst],
+            "found_step_f64_grad_dev_tensor": worst,
+            "found_step_f64_loss_rel": loss_rel}
+
+
+def avmnist_phase(torch, tk, work):
+    """(v1)-(v5); the input kernels launch nowhere on this path."""
+    tk.reset_launch_counts()
+    out = {}
+    found = write_avmnist_store(torch, os.path.join(work, "avmnist"),
+                                *AV_FOUND_STORE, seed=5)
+    out["v1_found"] = avmnist_found(torch, work, found)
+    out["warm_phase2"] = avmnist_warm_steps(torch, work, found)
+    shutil.rmtree(found)
+    search = write_avmnist_store(torch, os.path.join(work, "avmnist_search"),
+                                 *AV_SEARCH_STORE, seed=6)
+    out.update(avmnist_search(torch, work, search))
+    out["v5_card_vs_cpu"] = avmnist_card_vs_cpu(torch, search)
+    out["input_kernel_launches"] = dict(tk.launch_counts)
+    check(sum(tk.launch_counts.values()) == 0,
+          f"the AV-MNIST path launched {tk.launch_counts}")
+    return out
+
+
 # the least time of the input kernels at (20,8,256,256,3): each uint8 byte
 # read once and each output written once at 3.35 TB/s (their 2 operations
 # per element at 67 TFLOP/s f32 take ~1 us: bytes bound them)
@@ -1230,6 +1660,8 @@ def main():
         torch.cuda.empty_cache()
         search = search_phase(torch, work, packed)
         search["card_vs_cpu"] = search_card_vs_cpu(torch, packed)
+        torch.cuda.empty_cache()
+        avmnist = avmnist_phase(torch, tk, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1242,6 +1674,7 @@ def main():
     print(json.dumps({"training": train, "warm_train_steps": warm,
                       "card_vs_cpu_step": step, "nvidia_smi": smi}))
     print(json.dumps({"search": search, "nvidia_smi": smi}))
+    print(json.dumps({"avmnist": avmnist, "nvidia_smi": smi}))
     src = "mfas_tpu_torch/csrc/input_kernels.cu"
     # launches: K1's on its two main paths (streamed training, one per
     # train, dev and test batch; the default search, s1), K2's on the

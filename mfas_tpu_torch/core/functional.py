@@ -1,6 +1,7 @@
-"""Functional ops of the found-NTU path (port of mfas_tpu/core/functional.py).
+"""Functional ops of the ported paths (port of mfas_tpu/core/functional.py).
 
-Torch layouts throughout: (N,C,H,W) and (N,C,D,H,W), weights (O,I,k...).
+Torch layouts throughout: (N,C,L), (N,C,H,W) and (N,C,D,H,W), weights
+(O,I,k...).
 Convolutions are cuDNN's on the card, as the JAX package leaves them to XLA
 outside any kernel.
 """
@@ -18,6 +19,12 @@ def conv2d(x, w, b=None, stride=1, padding=0, dilation=1, groups=1):
 
 def conv3d(x, w, b=None, stride=1, padding=0, dilation=1, groups=1):
     return TF.conv3d(x, w, b, stride=stride, padding=padding,
+                     dilation=dilation, groups=groups)
+
+
+def conv1d(x, w, b=None, stride=1, padding=0, dilation=1, groups=1):
+    """x: (N,C,L), w: (O,I,k) (the AV-MNIST CentralNet's central column)."""
+    return TF.conv1d(x, w, b, stride=stride, padding=padding,
                      dilation=dilation, groups=groups)
 
 

@@ -1,4 +1,4 @@
-"""Layers of the found-NTU path (port of mfas_tpu/core/layers.py).
+"""Layers of the ported paths (port of mfas_tpu/core/layers.py).
 
 ``nn.Module``s whose ``state_dict`` keys are the JAX package's tree paths:
 ``weight``, ``bias``, ``running_mean``, ``running_var``,
@@ -66,6 +66,11 @@ class _ConvNd(nn.Module):
         return self._fn(x, self.weight, self.bias, stride=self.stride,
                         padding=self.padding, dilation=self.dilation,
                         groups=self.groups)
+
+
+class Conv1d(_ConvNd):
+    _ndim = 1
+    _fn = staticmethod(F.conv1d)
 
 
 class Conv2d(_ConvNd):
@@ -207,6 +212,13 @@ def set_dropout_generator(model, generator):
     for m in model.modules():
         if isinstance(m, _DropoutBase):
             m.generator = generator
+
+
+class GlobalPooling2D(nn.Module):
+    """Mean over every dim after the channel one (aux_models.py:54-64)."""
+
+    def forward(self, x):
+        return F.global_avg_pool2d(x)
 
 
 class MaxPool2d(nn.Module):

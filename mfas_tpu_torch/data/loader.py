@@ -1,11 +1,11 @@
-"""Host-side batch loaders (the found-NTU slice's part of
-mfas_tpu/data/loader.py).
+"""Host-side batch loaders (port of mfas_tpu/data/loader.py).
 
 Every batch is padded to the full batch size and carries a 0/1 ``_mask``;
 losses and accuracy counters are mask-weighted, which reproduces the
-reference's dataset-level statistics. ``MapLoader`` draws the same shuffle
-and per-sample seeds as the JAX package's, so both packages visit samples and
-augmentations in the same order.
+reference's dataset-level statistics. ``ArrayLoader`` serves in-memory numpy
+arrays (AV-MNIST); ``MapLoader`` wraps an indexable dataset (NTU). Both draw
+the same shuffles (and per-sample seeds) as the JAX package's, so both
+packages visit samples and augmentations in the same order.
 """
 
 from __future__ import annotations
@@ -27,6 +27,48 @@ class ResumableRng:
 
     def set_rng_state(self, state):
         self._rng.set_state(state)
+
+
+class ArrayLoader(ResumableRng):
+    """Batches over parallel in-memory arrays.
+
+    arrays: dict name -> np.ndarray with equal leading dim; ``indices``
+    selects the rows of this split. Yields dicts of numpy arrays plus
+    ``_mask`` (float32 0/1); the final batch is padded to ``batch_size`` by
+    repeating its first row."""
+
+    def __init__(self, arrays: dict, batch_size: int, shuffle: bool = False,
+                 seed: int = 0, indices=None):
+        self.arrays = arrays
+        first = next(iter(arrays.values()))
+        self.indices = (np.arange(len(first)) if indices is None
+                        else np.asarray(indices))
+        self.batch_size = int(batch_size)
+        self.shuffle = shuffle
+        self._rng = np.random.RandomState(seed)
+
+    @property
+    def dataset_size(self):
+        return len(self.indices)
+
+    def __len__(self):
+        return -(-len(self.indices) // self.batch_size)
+
+    def __iter__(self):
+        idx = self.indices.copy()
+        if self.shuffle:
+            self._rng.shuffle(idx)
+        bs = self.batch_size
+        for start in range(0, len(idx), bs):
+            take = idx[start:start + bs]
+            n = len(take)
+            mask = np.zeros((bs,), np.float32)
+            mask[:n] = 1.0
+            if n < bs:
+                take = np.concatenate([take, np.repeat(take[:1], bs - n)])
+            batch = {k: v[take] for k, v in self.arrays.items()}
+            batch["_mask"] = mask
+            yield batch
 
 
 def to_device(x, device):

@@ -37,6 +37,10 @@ import time
 
 import numpy as np
 
+from mfas_tpu_torch.runtime.cli import (MULTI_GPU, NATIVE_IO, add_dist_args,
+                                        cli_device, dist_requested,
+                                        reject_unported)
+
 
 def parse_args(argv=None):
     parser = argparse.ArgumentParser(description="Modality optimization.")
@@ -135,10 +139,7 @@ def parse_args(argv=None):
                         help='per-epoch resumable training state path')
     parser.add_argument('--resume', action='store_true', default=False,
                         help='resume from --train_state if present')
-    parser.add_argument('--dist_coordinator', type=str, default=None,
-                        help='multi-host: host:port of process 0')
-    parser.add_argument('--dist_num_processes', type=int, default=None)
-    parser.add_argument('--dist_process_id', type=int, default=None)
+    add_dist_args(parser)
     return parser.parse_args(argv)
 
 
@@ -151,9 +152,6 @@ FOUND_CONFS = {
     4: np.array([[3, 1, 1], [1, 3, 0], [1, 1, 1], [3, 3, 0]]),
 }
 
-_NATIVE_IO = "ROADMAP.md §1 'NTU raw-AVI and native IO path'"
-_MULTI_GPU = "ROADMAP.md §1 'Multi-GPU'"
-
 # the initial weights' seed (the JAX CLI's model.init(0)); dropout draws
 # from the engine's generator, seeded apart from it
 INIT_SEED = 0
@@ -161,23 +159,17 @@ INIT_SEED = 0
 
 def _reject_unported(args):
     """Stop on a flag whose feature the port does not have yet."""
-    dist = any(getattr(args, k) is not None for k in
-               ("dist_coordinator", "dist_num_processes", "dist_process_id"))
     packed_host_norm = (args.packed_datadir and not args.hbm_resident
                         and not args.device_input_normalize)
-    checks = [
-        (args.use_dataparallel, "--use_dataparallel", _MULTI_GPU),
-        (dist, "--dist_*", _MULTI_GPU),
-        (args.shard_resident_store, "--shard_resident_store", _MULTI_GPU),
+    reject_unported([
+        (args.use_dataparallel, "--use_dataparallel", MULTI_GPU),
+        (dist_requested(args), "--dist_*", MULTI_GPU),
+        (args.shard_resident_store, "--shard_resident_store", MULTI_GPU),
         (not args.packed_datadir, "the raw-AVI --datadir input (no "
-         "--packed_datadir)", _NATIVE_IO),
+         "--packed_datadir)", NATIVE_IO),
         (packed_host_norm, "--packed_datadir normalized on the host (neither "
-         "--device_input_normalize nor --hbm_resident)", _NATIVE_IO),
-    ]
-    for bad, what, item in checks:
-        if bad:
-            raise SystemExit(f"{what} is not ported to mfas_tpu_torch yet: "
-                             f"see {item}")
+         "--device_input_normalize nor --hbm_resident)", NATIVE_IO),
+    ])
     if args.conv_channels_last:
         raise SystemExit("--conv_channels_last is a TPU convolution layout "
                          "toggle of the JAX package; mfas_tpu_torch does not "
@@ -192,7 +184,7 @@ def get_dataloaders(args, device):
     tfm_tra = d.Compose([d.AugCrop(), d.NormalizeLen(args.vid_len)])
     if not args.packed_datadir:
         raise SystemExit(f"the raw-AVI --datadir input is not ported yet: "
-                         f"see {_NATIVE_IO}")
+                         f"see {NATIVE_IO}")
 
     if args.hbm_resident:
         from mfas_tpu_torch.data.resident import (ResidentLoader,
@@ -248,7 +240,7 @@ def make_engine(model, args, device):
                             compute_dtype=compute_dtype, remat=args.remat)
 
 
-def _train_phase(engine, what, *args, **kw):
+def train_phase(engine, what, *args, **kw):
     """One ``engine.train_track_acc`` call; prints its train clips/s and,
     on the card, the peak allocated memory of the call, which it returns
     beside the call's result."""
@@ -269,10 +261,13 @@ def _train_phase(engine, what, *args, **kw):
     return result, peak
 
 
-def train_model(engine, model, configuration, dataloaders, args):
+def train_model(engine, model, configuration, dataloaders, args,
+                state_path=None, resume=False):
     """The two training phases (unless --test_cp), then the test split;
     returns the test accuracy and the peak allocated device memory of each
-    training phase run (main_found_ntu.py:190-264)."""
+    training phase run (main_found_ntu.py:190-264). With ``state_path``
+    phase 2 writes its per-epoch train state there, and ``resume`` resumes
+    from it (skipping phase 1) when it exists."""
     from mfas_tpu_torch.core.sched import LRCosineAnnealingScheduler
 
     sizes = {k: dl.dataset_size for k, dl in dataloaders.items()}
@@ -281,8 +276,7 @@ def train_model(engine, model, configuration, dataloaders, args):
     if args.test_cp == '':
         nbpe = sizes['train'] / args.batchsize
 
-        state_path = args.train_state or None
-        resuming = args.resume and state_path and os.path.exists(state_path)
+        resuming = resume and state_path and os.path.exists(state_path)
         if resuming:
             # phase 2's resume load replaces the whole training state, so
             # the phase-1 central pretrain would be an epoch of wasted work
@@ -295,7 +289,7 @@ def train_model(engine, model, configuration, dataloaders, args):
                 print(configuration)
             scheduler = LRCosineAnnealingScheduler(
                 args.eta_max, args.eta_min, args.Ti, args.Tm, nbpe)
-            (interm_acc, _), peak = _train_phase(
+            (interm_acc, _), peak = train_phase(
                 engine, "Phase 1 (central weights)", model.central_params(),
                 trainval, sizes, scheduler, num_epochs=1,
                 print_loss=args.verbose)
@@ -305,10 +299,10 @@ def train_model(engine, model, configuration, dataloaders, args):
 
         scheduler = LRCosineAnnealingScheduler(
             args.eta_max, args.eta_min, args.Ti, args.Tm, nbpe)
-        (best_acc, _), peak = _train_phase(
+        (best_acc, _), peak = train_phase(
             engine, "Phase 2 (whole net)", None, trainval, sizes, scheduler,
             num_epochs=args.epochs, print_loss=args.verbose,
-            state_path=state_path, resume=args.resume)
+            state_path=state_path, resume=resume)
         peaks.append(peak)
         if args.verbose:
             print('Final val accuracy: ' + str(best_acc))
@@ -343,20 +337,13 @@ class FoundRun:
 
 
 def main(argv=None, device=None):
-    import torch
-
     from mfas_tpu_torch.runtime import checkpoint as ckpt
     from mfas_tpu_torch.runtime.profiler import maybe_profile
 
     print("Training found NTU network")
     args = parse_args(argv)
     _reject_unported(args)
-    if device is None:
-        if not torch.cuda.is_available():
-            raise SystemExit("mfas_tpu_torch.main_found_ntu needs a CUDA "
-                             "device")
-        device = "cuda"
-    device = torch.device(device)
+    device = cli_device(device, "mfas_tpu_torch.main_found_ntu")
     print("The configuration of this run is:")
     print(args)
 
@@ -379,7 +366,8 @@ def main(argv=None, device=None):
     start_time = time.time()
     with maybe_profile(args.profile_dir, device):
         modelacc, peaks = train_model(engine, model, configuration,
-                                      dataloaders, args)
+                                      dataloaders, args,
+                                      args.train_state or None, args.resume)
     elapsed = time.time() - start_time
     record = engine.last_eval
     print('Training in {:.0f}m {:.0f}s'.format(elapsed // 60, elapsed % 60))

@@ -26,8 +26,10 @@ their ROADMAP.md item.
 """
 
 import argparse
-import dataclasses
-import time
+
+from mfas_tpu_torch.runtime.cli import (MULTI_GPU, NATIVE_IO, add_dist_args,
+                                        cli_device, dist_requested,
+                                        reject_unported)
 
 
 def parse_args(argv=None):
@@ -169,95 +171,35 @@ def parse_args(argv=None):
                              'and normalize them on the card (kernel K1)')
     parser.add_argument('--jsonl_log', type=str, default='',
                         help='append structured search telemetry here')
-    parser.add_argument('--dist_coordinator', type=str, default=None,
-                        help='multi-host: host:port of process 0')
-    parser.add_argument('--dist_num_processes', type=int, default=None)
-    parser.add_argument('--dist_process_id', type=int, default=None)
+    add_dist_args(parser)
     return parser.parse_args(argv)
-
-
-_NATIVE_IO = "ROADMAP.md §1 'NTU raw-AVI and native IO path'"
-_MULTI_GPU = "ROADMAP.md §1 'Multi-GPU'"
 
 
 def _reject_unported(args):
     """Stop on a flag whose feature the port does not have yet."""
-    dist = any(getattr(args, k) is not None for k in
-               ("dist_coordinator", "dist_num_processes", "dist_process_id"))
-    checks = [
-        (args.use_dataparallel, "--use_dataparallel", _MULTI_GPU),
-        (dist, "--dist_*", _MULTI_GPU),
-        (args.shard_feature_bank, "--shard_feature_bank", _MULTI_GPU),
+    reject_unported([
+        (args.use_dataparallel, "--use_dataparallel", MULTI_GPU),
+        (dist_requested(args), "--dist_*", MULTI_GPU),
+        (args.shard_feature_bank, "--shard_feature_bank", MULTI_GPU),
         (not args.packed_datadir, "the raw-AVI --datadir input (no "
-         "--packed_datadir)", _NATIVE_IO),
+         "--packed_datadir)", NATIVE_IO),
         (not args.device_input_normalize, "--packed_datadir normalized on "
-         "the host (no --device_input_normalize)", _NATIVE_IO),
-    ]
-    for bad, what, item in checks:
-        if bad:
-            raise SystemExit(f"{what} is not ported to mfas_tpu_torch yet: "
-                             f"see {item}")
-
-
-@dataclasses.dataclass
-class SearchRun:
-    """What ``main`` returns: the surrogate's dataset of trained confs, the
-    top-5 (conf, acc) pairs printed, the search's wall seconds and their
-    split by section (runtime/profiler.py::SectionTimer), and the count of
-    candidates trained."""
-    data: object
-    top: list
-    seconds: float
-    split: dict
-    candidates: int
+         "the host (no --device_input_normalize)", NATIVE_IO),
+    ])
 
 
 def main(argv=None, device=None):
-    import random
-
-    import numpy as np
-    import torch
-
-    from mfas_tpu_torch.runtime.profiler import SectionTimer
+    """-> search/searcher.py::SearchRun."""
+    from mfas_tpu_torch.search.searcher import run_search
     from mfas_tpu_torch.search.searchers import NTUSearcher
 
     args = parse_args(argv)
     _reject_unported(args)
-    if device is None:
-        if not torch.cuda.is_available():
-            raise SystemExit("mfas_tpu_torch.main_searchable_ntu needs a CUDA "
-                             "device")
-        device = "cuda"
-    device = torch.device(device)
-    if args.seed is not None:
-        np.random.seed(args.seed)
-        random.seed(args.seed)
-
-    timer = SectionTimer(device)
-    ntu_searcher = NTUSearcher(args, device=device,
-                               jsonl_log=args.jsonl_log or None, timer=timer)
-
-    print("MFAS for NTU Started!!!!")
-    start_time = time.time()
-    surrogate_data = ntu_searcher.search()
-    elapsed = time.time() - start_time
-    print('Search complete in {:.0f}m {:.0f}s'.format(elapsed // 60,
-                                                      elapsed % 60))
-    candidates = ntu_searcher.train_fn.candidates_trained
-    split = dict(timer.seconds)
-    print('Search time split (s): {}; {} candidates trained, {:.1f} '
-          'candidates/hour on {}'.format(
-              ", ".join(f"{k} {v:.3f}" for k, v in split.items()),
-              candidates, candidates / elapsed * 3600.0, device))
-
-    # tiny runs can finish with fewer than 5 unique confs in the store
-    k_best, k_accs, _ = surrogate_data.get_k_best(
-        min(5, len(surrogate_data)))
-    print('Now listing best architectures')
-    for conf, acc in zip(k_best, k_accs):
-        print(conf.tolist(), acc)
-    return SearchRun(data=surrogate_data, top=list(zip(k_best, k_accs)),
-                     seconds=elapsed, split=split, candidates=candidates)
+    device = cli_device(device, "mfas_tpu_torch.main_searchable_ntu")
+    return run_search(args, "NTU", device,
+                      lambda timer: NTUSearcher(
+                          args, device=device,
+                          jsonl_log=args.jsonl_log or None, timer=timer))
 
 
 if __name__ == "__main__":

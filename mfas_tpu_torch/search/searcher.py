@@ -1,4 +1,5 @@
-"""SMBO/EPNAS search loop (port of mfas_tpu/search/searcher.py, ``_epnas``).
+"""SMBO/EPNAS search loop and the random-search baseline (port of
+mfas_tpu/search/searcher.py: ``_epnas``, ``_randsearch``).
 
 The control flow is the reference's, down to its temperature iteration index
 ``si * search_iterations + progression_index``. After every step the search
@@ -12,10 +13,12 @@ state written by the JAX package resumes here and the other way round.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import pickle
 import random
+import time
 
 import numpy as np
 
@@ -79,13 +82,22 @@ class ModelSearcher:
             return pickle.load(f)
 
     @staticmethod
-    def _restore_loader_rng(st, dataloaders):
-        if not dataloaders:
-            return
+    def _restore(st, trainer, dataloaders):
+        """What both searches resume from: the sampler RNGs, the trainer's
+        seed counter and the loaders' RNG positions are set back; returns
+        the surrogate's data and the weight-sharing store."""
+        np.random.set_state(st["np_random_state"])
+        if st.get("py_random_state") is not None:
+            random.setstate(st["py_random_state"])
+        if st.get("trainer_seed") is not None and hasattr(trainer, "_seed"):
+            trainer._seed = st["trainer_seed"]
         for name, s in (st.get("loader_rng_states") or {}).items():
-            ld = dataloaders.get(name)
+            ld = (dataloaders or {}).get(name)
             if ld is not None and hasattr(ld, "set_rng_state"):
                 ld.set_rng_state(s)
+        shared = st.get("shared_weights")
+        return (SurrogateDataloader.from_state(st["surrogate_data"]),
+                {} if shared is None else shared)
 
     def _epnas(self, model_type, surrogate_dict, dataloaders,
                dataset_searchmethods, device=None):
@@ -108,21 +120,13 @@ class ModelSearcher:
         if (self.args.resume_search and state_path
                 and os.path.exists(state_path)):
             st = self.load_state(state_path)
-            s_data = SurrogateDataloader.from_state(st["surrogate_data"])
-            np.random.set_state(st["np_random_state"])
-            if st.get("py_random_state") is not None:
-                random.setstate(st["py_random_state"])
+            s_data, shared_weights = self._restore(st, train_sampled_models,
+                                                   dataloaders)
             temperature = st["temperature"]
             sampled_k_confs = [np.asarray(c) for c in st["sampled_k_confs"]]
             if st.get("surrogate_params") is not None:
                 surrogate.load_numpy(st["surrogate_params"],
                                      st.get("surrogate_opt_state"))
-            if st.get("shared_weights") is not None:
-                shared_weights = st["shared_weights"]
-            if (st.get("trainer_seed") is not None
-                    and hasattr(train_sampled_models, "_seed")):
-                train_sampled_models._seed = st["trainer_seed"]
-            self._restore_loader_rng(st, dataloaders)
             resume_after = (st["si"], st["progression_index"])
             if self.args.verbose:
                 print("Resuming search after iteration {} step {}".format(
@@ -223,6 +227,107 @@ class ModelSearcher:
                                  dataloaders=dataloaders)
 
         return s_data
+
+    def _randsearch(self, model_type, dataloaders, dataset_searchmethods,
+                    device=None):
+        """Uniform random baseline: --search_iterations x --max_fusions
+        iterations, each training --num_samples confs drawn by
+        ``tools.sample_k_configurations_directly``. Resumes as ``_epnas``
+        does (both RNG streams, the loaders' RNG, the trainer's seed
+        counter, the shared weights)."""
+        s_data = SurrogateDataloader()
+        train_sampled_models = dataset_searchmethods["train_sampled_fun"]
+        get_possible_layer_configurations = \
+            dataset_searchmethods["get_layer_confs"]
+        shared_weights = {}
+        state_path = self.args.search_state
+
+        resume_after = -1
+        if (self.args.resume_search and state_path
+                and os.path.exists(state_path)):
+            st = self.load_state(state_path)
+            s_data, shared_weights = self._restore(st, train_sampled_models,
+                                                   dataloaders)
+            resume_after = st["si"]
+            if self.args.verbose:
+                print(f"Resuming random search after iteration "
+                      f"{resume_after}")
+
+        total = self.args.search_iterations * self.args.max_progression_levels
+        for si in range(total):
+            if si <= resume_after:
+                continue
+            if self.args.verbose:
+                print(50 * "=")
+                print("Random Search iteration {}/{} ".format(si, total))
+
+            with self._section("sampler"):
+                sampled_k_confs = tools.sample_k_configurations_directly(
+                    self.args.num_samples, self.args.max_progression_levels,
+                    get_possible_layer_configurations)
+            sampled_k_accs = train_sampled_models(
+                sampled_k_confs, model_type, dataloaders, self.args, device,
+                state_dict=shared_weights)
+            tools.update_surrogate_dataloader(s_data, sampled_k_confs,
+                                              sampled_k_accs)
+            if self.args.verbose:
+                print("Trained architectures: ")
+                print(list(zip(sampled_k_confs, sampled_k_accs)))
+            self._log_event(kind="randsearch_step", si=si,
+                            surrogate_size=len(s_data))
+            self._save_state(state_path, s_data, 0.0, si, -1, sampled_k_confs,
+                             surrogate=None, shared_weights=shared_weights,
+                             trainer=train_sampled_models,
+                             dataloaders=dataloaders)
+        return s_data
+
+
+@dataclasses.dataclass
+class SearchRun:
+    """What a search CLI's ``main`` returns: the surrogate's dataset of
+    trained confs, the top-5 (conf, acc) pairs printed, the search's wall
+    seconds and their split by section (runtime/profiler.py::SectionTimer),
+    and the count of candidates trained."""
+    data: object
+    top: list
+    seconds: float
+    split: dict
+    candidates: int
+
+
+def run_search(args, name, device, make_searcher):
+    """The search CLIs' body: seed both sampler streams from --seed, build
+    the searcher (``make_searcher(timer)``), search, and print the time
+    split, the candidates per hour and the top-5."""
+    from mfas_tpu_torch.runtime.profiler import SectionTimer
+
+    if args.seed is not None:
+        np.random.seed(args.seed)
+        random.seed(args.seed)
+    timer = SectionTimer(device)
+    searcher = make_searcher(timer)
+
+    print(f"MFAS for {name} Started!!!!")
+    start_time = time.time()
+    surrogate_data = searcher.search()
+    elapsed = time.time() - start_time
+    print('Search complete in {:.0f}m {:.0f}s'.format(elapsed // 60,
+                                                      elapsed % 60))
+    candidates = searcher.train_fn.candidates_trained
+    split = dict(timer.seconds)
+    print('Search time split (s): {}; {} candidates trained, {:.1f} '
+          'candidates/hour on {}'.format(
+              ", ".join(f"{k} {v:.3f}" for k, v in split.items()),
+              candidates, candidates / elapsed * 3600.0, device))
+
+    # tiny runs can finish with fewer than 5 unique confs in the store
+    k_best, k_accs, _ = surrogate_data.get_k_best(
+        min(5, len(surrogate_data)))
+    print('Now listing best architectures')
+    for conf, acc in zip(k_best, k_accs):
+        print(conf.tolist(), acc)
+    return SearchRun(data=surrogate_data, top=list(zip(k_best, k_accs)),
+                     seconds=elapsed, split=split, candidates=candidates)
 
 
 def _np_default(o):

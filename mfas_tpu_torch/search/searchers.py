@@ -1,22 +1,27 @@
-"""The NTU searcher (port of mfas_tpu/search/searchers.py::NTUSearcher):
-wires the packed NTU stores, the backbones and the candidate trainer into
-the EPNAS loop.
+"""The NTU and AV-MNIST searchers (port of mfas_tpu/search/searchers.py:
+NTUSearcher, AVMNISTSearcher): wire the data, the backbones and the
+candidate trainer into the EPNAS loop (or, for AV-MNIST with
+``--randsearch``, the random search).
 
 Candidates train as populations (search/population.py) unless
 ``--sequential_candidates``; ``--weightsharing`` without
-``--population_weightsharing`` trains them one at a time too. The input is
+``--population_weightsharing`` trains them one at a time too. NTU's input is
 the packed store's trainexp/dev splits, streamed as raw uint8 clips that
-kernel K1 normalizes on the device.
+kernel K1 normalizes on the device; AV-MNIST's is float32 arrays in host
+memory, split into train and dev rows.
 """
 
 from __future__ import annotations
 
 import os
 
+import numpy as np
 import torch
 
 from mfas_tpu_torch.data import ntu as ntu_data
-from mfas_tpu_torch.data.loader import MapLoader
+from mfas_tpu_torch.data.avmnist import load_avmnist_arrays, train_dev_split
+from mfas_tpu_torch.data.loader import ArrayLoader, MapLoader
+from mfas_tpu_torch.fusion import avmnist as f_avmnist
 from mfas_tpu_torch.fusion import ntu as f_ntu
 from mfas_tpu_torch.runtime import checkpoint as ckpt
 from mfas_tpu_torch.search.population import PopulationSpec
@@ -39,6 +44,35 @@ def _feature_dtype(args):
     if args.bf16_features or args.cache_features:
         return "bfloat16"
     return None
+
+
+def _load_backbones(args, extractor, checkpoints):
+    """checkpoints: (attribute, file in --checkpointdir or '') pairs; each
+    backbone loads its file (or keeps its initial weights under
+    --random_backbones) -> attribute -> state_dict, what every sequential
+    candidate loads into its backbones."""
+    for attr, cp in checkpoints:
+        ckpt.load_backbone(
+            os.path.join(args.checkpointdir, cp) if cp else "",
+            getattr(extractor, attr), random_ok=args.random_backbones)
+    return {attr: getattr(extractor, attr).state_dict()
+            for attr, _ in checkpoints}
+
+
+def _candidate_trainer(args, spec, extractor, backbone_states, input_keys,
+                       device, timer, batch_prep=None, input_prep=None):
+    """The sequential trainer under --sequential_candidates, else the
+    population trainer with the sequential one as its weight-sharing
+    fallback."""
+    seq = SequentialSearchTrainer(backbone_states, input_keys, device=device,
+                                  batch_prep=batch_prep, timer=timer)
+    if args.sequential_candidates:
+        return seq
+    return PopulationSearchTrainer(
+        spec, extractor, input_keys, device=device, sequential_fallback=seq,
+        input_prep=input_prep, cache_features=args.cache_features,
+        fused_epochs=not args.no_fused_epochs, bank_batch=args.bank_batch,
+        int8_bank=args.int8_feature_bank, timer=timer)
 
 
 class NTUSearcher(ModelSearcher):
@@ -72,14 +106,10 @@ class NTUSearcher(ModelSearcher):
         extractor = f_ntu.NTUFeatureExtractor(
             args, device=self.device,
             generator=torch.Generator().manual_seed(BACKBONE_SEED))
-        for attr, cp in (("skenet", args.ske_cp), ("rgbnet", args.rgb_cp)):
-            ckpt.load_backbone(
-                os.path.join(args.checkpointdir, cp) if cp else "",
-                getattr(extractor, attr), random_ok=args.random_backbones)
+        backbone_states = _load_backbones(
+            args, extractor,
+            (("skenet", args.ske_cp), ("rgbnet", args.rgb_cp)))
         self.extractor = extractor
-        # what each sequential candidate loads into its backbones
-        backbone_states = {attr: getattr(extractor, attr).state_dict()
-                           for attr in ("rgbnet", "skenet")}
 
         feature_dtype = _feature_dtype(args)
         sizes_ske, sizes_ims = f_ntu.tap_sizes(args)
@@ -91,22 +121,11 @@ class NTUSearcher(ModelSearcher):
             drpt=args.drpt, use_alphas=args.alphas, multitask=args.multitask,
             feature_dtype=feature_dtype)
 
-        seq = SequentialSearchTrainer(
-            backbone_states, ("rgb", "ske"), device=self.device,
-            batch_prep=make_device_normalize_prep(), timer=timer)
-        if args.sequential_candidates:
-            self.train_fn = seq
-        else:
-            self.train_fn = PopulationSearchTrainer(
-                spec, extractor, ("rgb", "ske"), device=self.device,
-                sequential_fallback=seq,
-                input_prep=make_device_normalize_inputs_prep(
-                    torch.bfloat16 if feature_dtype else None),
-                cache_features=args.cache_features,
-                fused_epochs=not args.no_fused_epochs,
-                bank_batch=args.bank_batch,
-                int8_bank=args.int8_feature_bank,
-                timer=timer)
+        self.train_fn = _candidate_trainer(
+            args, spec, extractor, backbone_states, ("rgb", "ske"),
+            self.device, timer, batch_prep=make_device_normalize_prep(),
+            input_prep=make_device_normalize_inputs_prep(
+                torch.bfloat16 if feature_dtype else None))
         self.surrogate = SimpleRecurrentSurrogate(100, 3, 100,
                                                   device=self.device)
 
@@ -116,3 +135,54 @@ class NTUSearcher(ModelSearcher):
         return self._epnas(f_ntu.Searchable_Skeleton_Image_Net,
                            {"model": self.surrogate}, self.dataloaders, methods,
                            self.device)
+
+
+class AVMNISTSearcher(ModelSearcher):
+    """train[0:50000] for search training, train[50000:55000] as dev
+    (reference models/searchable.py:184-224)."""
+
+    def __init__(self, args, *, device, jsonl_log=None, timer=None):
+        super().__init__(args, jsonl_log=jsonl_log, timer=timer)
+        self.device = torch.device(device)
+        arrays = load_avmnist_arrays(args.datadir, "train")
+        dev_lo, dev_hi = train_dev_split(arrays["image"].shape[0])
+        self.dataloaders = {
+            "train": ArrayLoader(arrays, args.batchsize, shuffle=True,
+                                 seed=0, indices=np.arange(0, dev_lo)),
+            "dev": ArrayLoader(arrays, args.batchsize,
+                               indices=np.arange(dev_lo, dev_hi)),
+        }
+
+        extractor = f_avmnist.AVMnistFeatureExtractor(
+            args, device=self.device,
+            generator=torch.Generator().manual_seed(BACKBONE_SEED))
+        backbone_states = _load_backbones(
+            args, extractor,
+            (("rgbnet", args.rgb_cp), ("audnet", args.audio_cp)))
+        self.extractor = extractor
+
+        sizes_aud, sizes_ims = f_avmnist.tap_sizes(args)
+        spec = PopulationSpec(
+            sizes_a=tuple(sizes_aud), sizes_b=tuple(sizes_ims),
+            hidden=args.inner_representation_size,
+            num_outputs=args.num_outputs,
+            max_rows=args.max_progression_levels, batchnorm=False,
+            drpt=args.drpt, use_alphas=args.alphas, multitask=args.multitask,
+            feature_dtype=_feature_dtype(args))
+
+        self.train_fn = _candidate_trainer(
+            args, spec, extractor, backbone_states, ("image", "audio"),
+            self.device, timer)
+        self.surrogate = SimpleRecurrentSurrogate(100, 3, 100,
+                                                  device=self.device)
+
+    def search(self):
+        methods = {"train_sampled_fun": self.train_fn,
+                   "get_layer_confs":
+                       f_avmnist.get_possible_layer_configurations}
+        model_type = f_avmnist.Searchable_Audio_Image_Net
+        if self.args.randsearch:
+            return self._randsearch(model_type, self.dataloaders, methods,
+                                    self.device)
+        return self._epnas(model_type, {"model": self.surrogate},
+                           self.dataloaders, methods, self.device)

@@ -1,12 +1,14 @@
 """Search-space exploration primitives (port of mfas_tpu/search/tools.py).
 
 Host numpy with the reference's formulas and RNG call order (the global
-``np.random`` stream), so a seeded search samples the same confs in both
-packages. Only candidate training runs on the device. The random-search
-sampler comes with ``_randsearch`` (AV-MNIST).
+``np.random`` stream, and the stdlib ``random`` stream for the random
+search's depth draws), so a seeded search samples the same confs in both
+packages. Only candidate training runs on the device.
 """
 
 from __future__ import annotations
+
+import random
 
 import numpy as np
 
@@ -42,6 +44,11 @@ def sample_k_configurations(configurations, accuracies_, k, temperature):
     return [configurations[i] for i in indices]
 
 
+def sample_k_configurations_uniform(configurations, k):
+    indices = np.random.choice(len(configurations), k)
+    return [configurations[i] for i in indices]
+
+
 def merge_unfolded_with_sampled(previous_top_k_configurations,
                                 unfolded_configurations, layer):
     """Unfold step of the progressive search: row-substitute when layer <
@@ -66,6 +73,28 @@ def merge_unfolded_with_sampled(previous_top_k_configurations,
                         [prev_conf, np.expand_dims(np.asarray(unfolded_conf), 0)], 0)
                 merged.append(new_conf)
     return merged
+
+
+def sample_k_configurations_directly(k, max_progression_levels,
+                                     get_possible_layer_configurations_fun,
+                                     legacy_bug=False):
+    """Random-search sampler: each conf's depth from ``random.randint``,
+    each row uniform from its layer's space. The reference indexes the
+    space with a stale loop variable, so every layer draws from the last
+    layer's space; ``legacy_bug=True`` reproduces that."""
+    configurations = []
+    possible = [get_possible_layer_configurations_fun(layer)
+                for layer in range(max_progression_levels)]
+    stale = max_progression_levels - 1
+
+    for _ in range(k):
+        num_layers_sample = random.randint(1, max_progression_levels)
+        conf = []
+        for layer in range(num_layers_sample):
+            idx = stale if legacy_bug else layer
+            conf.append(sample_k_configurations_uniform(possible[idx], 1))
+        configurations.append(np.array(conf)[:, 0, :])
+    return configurations
 
 
 def compute_temperature(iteration, args):

@@ -41,5 +41,12 @@ def test_port_imports_neither_jax_nor_mfas_tpu():
                  "mfas_tpu_torch.search.population",
                  "mfas_tpu_torch.search.trainers",
                  "mfas_tpu_torch.search.searcher",
-                 "mfas_tpu_torch.search.searchers"):
+                 "mfas_tpu_torch.search.searchers",
+                 "mfas_tpu_torch.models.avmnist",
+                 "mfas_tpu_torch.fusion.avmnist",
+                 "mfas_tpu_torch.data.avmnist",
+                 "mfas_tpu_torch.data.loader",
+                 "mfas_tpu_torch.runtime.cli",
+                 "mfas_tpu_torch.main_searchable_avmnist",
+                 "mfas_tpu_torch.main_found_avmnist"):
         assert name in res["modules"]
