@@ -73,14 +73,30 @@
    best above 0.2), (v3) --cache_features, (v4) --randsearch written after
    its first iteration and resumed; (v5) the extractor's taps card against
    CPU in f32 (1e-4 of max, buffers unchanged) and one found phase-2 step in
-   f64 (1e-3 of max). Neither input kernel may launch on this path.
+   f64 (1e-3 of max). Neither input kernel may launch on this path;
+13. the MM-IMDB vertical (mmimdb_phase) on a synthetic store in the
+   reference layout written on the card (2,048 / 512 / 1,024 samples of
+   256x160 posters and GloVe-like text): (m1) the default
+   vggt_centralnet_v2 at full width (VGG-19, --channels 512,
+   --text_first_hidden 256, B=64) trained one epoch through
+   ``mfas_tpu_torch.main_found_mmimdb`` with --save_checkpoint (finite
+   losses, dev F1 above the all-genres F1), whose --test_cp must print the
+   same Model F1; (m2) --central_only, the non-central parameters as built
+   and some central one moved;
+   (m3) warm whole-net and central steps timed and profiled, and the
+   loader's batch apart; (m4) the other four --model nets for one epoch;
+   (m5) taps and heads card against CPU in f32 (1e-4 of max), a whole-net
+   step in f64 (1e-3 of max; a gradient that vanishes on the CPU is named
+   and must stay below 1e-12 of the largest on the card),
+   SimpleRecurrentModel in f32 (1e-4). Neither
+   input kernel may launch on this path.
 
 mfas_tpu_torch/scripts/archive_smoke.sh runs this script from a git archive
 of the tree and alone in an empty directory.
 
 TF32 is off throughout. Any failed check exits non-zero. Before the last
-lines come {"slice": ...}, {"training": ...}, {"search": ...} and
-{"avmnist": ...} with the measured numbers; then {"kernels": [...]} with
+lines come {"slice": ...}, {"training": ...}, {"search": ...},
+{"avmnist": ...} and {"mmimdb": ...} with the measured numbers; then {"kernels": [...]} with
 each kernel's launches on the main paths, time, plain version's time and
 bound; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero.
@@ -460,6 +476,34 @@ def profile_summary(trace_path, steps=1):
             "top_ms": [[n[:70], t / per] for n, t in top]}
 
 
+def traced(torch, work, name, fn, calls, steps=None):
+    """profile_summary of ``calls`` calls of fn under torch.profiler (CPU
+    and card activity), per ``steps`` steps (default: per call), with
+    ``wall_ms_traced``, the traced wall time per step. CUPTI now and then
+    hands the profiler no kernel record at all; such a trace is taken once
+    more before the run fails."""
+    from torch.profiler import ProfilerActivity, profile
+
+    steps = steps or calls
+    trace = os.path.join(work, f"{name}.json")
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        prof.export_chrome_trace(trace)
+        p = profile_summary(trace, steps=steps)
+        os.remove(trace)
+        if "busy_share" in p:
+            p["wall_ms_traced"] = wall / steps * 1e3
+            return p
+        print(f"{name}: the trace holds no kernel; tracing again", flush=True)
+    raise SmokeFailure(f"{name}: torch.profiler caught no kernel twice")
+
+
 def training_phase(torch, work, packed):
     import numpy as np
 
@@ -569,7 +613,6 @@ def warm_train_steps(torch, work, packed):
     torch.profiler give the device time per step by kernel class
     (profile_summary)."""
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
 
     from mfas_tpu_torch import main_found_ntu as tmain
     from mfas_tpu_torch.core.optim import make_adam
@@ -616,18 +659,9 @@ def warm_train_steps(torch, work, packed):
                   f"{r['train_clips_per_s']:.2f} train clips/s, peak "
                   f"{r['peak_bytes'] / 2**30:.2f} GiB allocated "
                   f"(steps {[round(t, 1) for t in r['step_ms_all']]} ms)")
-            trace = os.path.join(work, f"warm_{mode}_{name}.json")
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                for _ in range(n_prof):
-                    engine._train_step(batch, opt, args.eta_max)
-                torch.cuda.synchronize()
-                traced = time.perf_counter() - t0
-            prof.export_chrome_trace(trace)
-            r["profile"] = p = profile_summary(trace, steps=n_prof)
-            p["wall_ms_traced"] = traced / n_prof * 1e3
-            os.remove(trace)
+            r["profile"] = p = traced(
+                torch, work, f"warm_{mode}_{name}",
+                lambda: engine._train_step(batch, opt, args.eta_max), n_prof)
             print(f"profile {mode} {name}, ms per step: wall (traced) "
                   f"{p['wall_ms_traced']:.1f}, device busy "
                   f"{p['device_busy_ms']:.1f} ({100 * p['busy_share']:.0f} % "
@@ -990,7 +1024,6 @@ def search_step_times(torch, work, s1_data):
     ended by a synchronize; then its profiled calls under torch.profiler
     give the device's busy share and kernels per step."""
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
 
     from mfas_tpu_torch import main_searchable_ntu as smain
     from mfas_tpu_torch.core.optim import make_adam
@@ -1011,15 +1044,7 @@ def search_step_times(torch, work, s1_data):
             fn()
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
-        trace = os.path.join(work, "search_step.json")
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(n_prof):
-                fn()
-            torch.cuda.synchronize()
-        prof.export_chrome_trace(trace)
-        p = profile_summary(trace, steps=n_prof * per)
-        os.remove(trace)
+        p = traced(torch, work, "search_step", fn, n_prof, n_prof * per)
         r = {"ms": float(np.median(times[n_warm:])) * 1e3 / per,
              "busy_share": p["busy_share"],
              "device_busy_ms": p["device_busy_ms"],
@@ -1306,7 +1331,6 @@ def avmnist_warm_steps(torch, work, store):
     train ArrayLoader's batches (fancy index of 128 rows, 6.8 MB) placed on
     the card, per batch."""
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
 
     from mfas_tpu_torch import main_found_avmnist as fmain
     from mfas_tpu_torch.core.optim import make_adam
@@ -1351,15 +1375,9 @@ def avmnist_warm_steps(torch, work, store):
          "peak_bytes": torch.cuda.max_memory_allocated(),
          "step_ms_all": [t * 1e3 for t in times],
          "loader_batch_ms": loader_ms}
-    trace = os.path.join(work, "avmnist_warm.json")
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n_prof):
-            engine._train_step(batch, opt, args.eta_max)
-        torch.cuda.synchronize()
-    prof.export_chrome_trace(trace)
-    r["profile"] = p = profile_summary(trace, steps=n_prof)
-    os.remove(trace)
+    r["profile"] = p = traced(
+        torch, work, "avmnist_warm",
+        lambda: engine._train_step(batch, opt, args.eta_max), n_prof)
     r["card_state"] = card_state("after AV-MNIST warm steps")
     print(f"AV-MNIST warm phase 2: {ms:.2f} ms/step, "
           f"{r['train_clips_per_s']:.0f} train clips/s, peak "
@@ -1599,6 +1617,414 @@ def avmnist_phase(torch, tk, work):
     return out
 
 
+# MM-IMDB: a store in the reference layout at the reference's poster size,
+# cut from 15,552 / 2,608 / 7,799 samples to these
+MM_SPLITS = {"train": 2048, "dev": 512, "test": 1024}
+MM_POSTER = (160, 256, 3)   # stored (H, W, C); the loader makes it (3,256,160)
+MM_GENRES = 23
+MM_CHUNK = 256
+MM_TEXT_SHIFT = 0.5         # each text row moves 0.5 along +-1 per genre
+MM_ARGV = ["--text_first_hidden", "256", "--epochs", "1",
+           *[a for k, n in MM_SPLITS.items()
+             for a in (f"--{k}_size", str(n))]]
+MM_SMALL = ["--epochs", "1", "--train_size", "256", "--dev_size", "64",
+            "--test_size", "64", "--no-verbose"]
+# the other four --model choices at widths each can be built at: the LeNet
+# trunk grows to 16 x --channels; SimpleVT_CentralNet's classifier is 384
+# wide for '13,25', which the gp5 tap (16 x 24) and the text net's second
+# output (2 x 192) meet
+MM_OTHERS = (("simplevt", ["--channels", "32"]),
+             ("simplevt_centralnet", ["--channels", "24", "--fusingmix",
+                                      "13,25", "--text_first_hidden", "192"]),
+             ("vggvt", []),
+             ("vggt_centralnet", ["--text_first_hidden", "256"]))
+MM_WARM = (3, 20, 3)        # warm train steps: untimed, timed, profiled
+
+
+def write_mmimdb_store(torch, root, seed):
+    """A synthetic MM-IMDB store in the layout of mfas_tpu_torch/data/
+    mm_imdb.py: U(0, 1) f32 posters, 1-2 genres of 23 per sample (as
+    make_synthetic_mmimdb draws them), (T, 300) text with T in [5, 30)
+    whose rows are N(0, 1) plus MM_TEXT_SHIFT times a fixed +-1 direction
+    per genre of the sample, so the averaged text carries the labels and
+    one epoch can beat predicting every genre. Drawn on ``device`` in
+    chunks of MM_CHUNK samples."""
+    import numpy as np
+
+    t0 = time.time()
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dirs = torch.randint(0, 2, (MM_GENRES, 300), device="cuda",
+                         generator=g).float() * 2 - 1
+    for split, n in MM_SPLITS.items():
+        base = os.path.join(root, split)
+        os.makedirs(base)
+        for lo in range(0, n, MM_CHUNK):
+            m = min(n, lo + MM_CHUNK) - lo
+            images = torch.rand((m, *MM_POSTER), device="cuda",
+                                generator=g).cpu().numpy()
+            labels = torch.zeros((m, MM_GENRES), device="cuda")
+            labels.scatter_(1, torch.randint(0, MM_GENRES, (m, 2),
+                                             device="cuda", generator=g), 1.0)
+            lens = torch.randint(5, 30, (m,), device="cuda", generator=g)
+            text = (torch.randn((m, 30, 300), device="cuda", generator=g)
+                    + MM_TEXT_SHIFT * (labels @ dirs)[:, None, :])
+            labels, lens, text = (x.cpu().numpy() for x in (labels, lens,
+                                                            text))
+            for i in range(m):
+                name = "{:06}.npy".format(lo + i)
+                np.save(os.path.join(base, "image_" + name), images[i])
+                np.save(os.path.join(base, "label_" + name), labels[i])
+                np.save(os.path.join(base, "text_" + name),
+                        text[i, :lens[i]])
+    print(f"MM-IMDB store {MM_SPLITS} written in {time.time() - t0:.1f} s")
+    return root
+
+
+def all_genres_f1(root, split):
+    """The samples-F1 of predicting every genre for each sample."""
+    import numpy as np
+
+    from mfas_tpu_torch.data.mm_imdb import samples_f1
+
+    labels = np.stack([np.load(os.path.join(root, split,
+                                            "label_{:06}.npy".format(i)))
+                       for i in range(MM_SPLITS[split])]) > 0.5
+    return samples_f1(labels, np.ones_like(labels))
+
+
+def _mmimdb_run(torch, name, argv):
+    """One in-process ``mfas_tpu_torch.main_found_mmimdb`` run: its train
+    and dev epochs (finite losses), test samples-F1 in [0, 1], wall time,
+    samples/s and peak allocated memory."""
+    import numpy as np
+
+    from mfas_tpu_torch import main_found_mmimdb as mmain
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    run, out = _quiet(mmain.main, argv)
+    seconds = time.time() - t0
+    epochs = [e for r in run.train for e in r.epochs]
+    losses = [e["loss"] for e in epochs if e["phase"] == "train"]
+    check(all(np.isfinite(losses)) and 0.0 <= run.acc <= 1.0,
+          f"{name}: losses {losses}, Model F1 {run.acc}")
+    check(f"Model F1: {run.acc}" in out, f"{name}: no Model F1 line")
+    r = {"seconds": seconds, "model_f1": run.acc, "epochs": epochs,
+         "dev_f1": [e["f1"] for e in epochs if e["phase"] == "dev"],
+         "peak_bytes": torch.cuda.max_memory_allocated(),
+         "eval_samples_per_s": run.eval.clips / run.eval.seconds,
+         "saved": run.saved}
+    if run.train:
+        t = run.train[0]
+        r["train_samples_per_s"] = t.train_clips / t.train_seconds
+    print(f"{name}: {seconds:.1f} s; Model F1 {run.acc}; epochs "
+          + ", ".join(f"{e['phase']} " + (f"loss {e['loss']:.4f}"
+                                          if "loss" in e
+                                          else f"F1 {e['f1']:.4f}")
+                      for e in epochs)
+          + (f"; {r['train_samples_per_s']:.0f} train samples/s (epoch, "
+             f"loader included)" if run.train else "")
+          + f"; test {r['eval_samples_per_s']:.0f} samples/s; peak "
+          f"{r['peak_bytes'] / 2**30:.2f} GiB allocated", flush=True)
+    return r, run
+
+
+def mmimdb_found(torch, work, store):
+    """(m1) the default model at full width (VGG-19 on 3x256x160 posters,
+    --channels 512, --text_first_hidden 256, B=64) for one epoch with
+    --save_checkpoint, then --test_cp of the file (the same Model F1, no
+    training); dev F1 above the all-genres F1. (m2) --central_only: the
+    non-central parameters as built, some central one moved. (m4) the other four --model choices
+    for one epoch on 256/64/64 samples."""
+    from mfas_tpu_torch import main_found_mmimdb as mmain
+    from mfas_tpu_torch.runtime.checkpoint import load_state_dict
+
+    phase("MM-IMDB (m1) default model, full width")
+    base = ["--datadir", store, "--checkpointdir", work]
+    out = {}
+    r, run = _mmimdb_run(torch, "m1", base + MM_ARGV + ["--save_checkpoint"])
+    floor = all_genres_f1(store, "dev")
+    r["all_genres_dev_f1"] = floor
+    check(r["dev_f1"][0] > floor, f"m1: dev F1 {r['dev_f1'][0]} not above "
+          f"the all-genres F1 {floor}")
+    again, _ = _mmimdb_run(torch, "m1 --test_cp", base + MM_ARGV + [
+        "--test_cp", os.path.basename(run.saved)])
+    check(again["epochs"] == [] and again["model_f1"] == r["model_f1"],
+          f"m1: --test_cp Model F1 {again['model_f1']}, the trained run's "
+          f"{r['model_f1']}")
+    r["test_cp"] = again
+    print(f"m1: dev F1 {r['dev_f1'][0]:.4f} against {floor:.4f} for every "
+          f"genre; --test_cp printed the same Model F1", flush=True)
+    out["m1_default"] = r
+
+    phase("MM-IMDB (m2) --central_only")
+    m2 = os.path.join(work, "m2")
+    os.makedirs(m2)
+    r, run = _mmimdb_run(torch, "m2", ["--datadir", store, "--checkpointdir",
+                                       m2, *MM_ARGV, "--central_only",
+                                       "--save_checkpoint"])
+    built = mmain.build_model(mmain.parse_args(MM_ARGV), "cpu")
+    central = tuple(built.central_params())
+    saved = load_state_dict(run.saved)
+    frozen = [n for n, p in built.named_parameters()
+              if not n.startswith(central)]
+    check(all(torch.equal(saved[n], p.detach()) for n, p in
+              built.named_parameters() if n in frozen),
+          "m2: --central_only moved a non-central parameter")
+    trained = {n: p for n, p in built.named_parameters()
+               if n.startswith(central)}
+    moved = [n for n, p in trained.items()
+             if not torch.equal(saved[n], p.detach())]
+    check(moved, "m2: --central_only saved every central parameter as built")
+    r["central_moved"] = f"{len(moved)} of {len(trained)}"
+    print(f"m2: the {len(frozen)} non-central parameters as built, "
+          f"{len(moved)} of the {len(trained)} central ones moved")
+    out["m2_central_only"] = r
+
+    phase("MM-IMDB (m4) the other --model choices, one epoch on 256")
+    for model, extra in MM_OTHERS:
+        out[f"m4_{model}"], _ = _mmimdb_run(
+            torch, f"m4 {model}", base + ["--model", model, *extra,
+                                          *MM_SMALL])
+    return out
+
+
+def mmimdb_warm_steps(torch, work, store):
+    """(m3) warm train steps of the (m1) net on one placed batch of 64,
+    whole net and --central_only: the median of MM_WARM's timed steps
+    after its untimed ones (each ended by a synchronize), peak allocated
+    memory over them, then profiled steps; and the host side apart: the
+    train MMIMDBLoader's batch (64 posters read and collated, placed on the
+    card)."""
+    import numpy as np
+
+    from mfas_tpu_torch import main_found_mmimdb as mmain
+    from mfas_tpu_torch.core.optim import make_adam
+    from mfas_tpu_torch.data.mm_imdb import MM_IMDB, MMIMDBLoader
+    from mfas_tpu_torch.engine.classifier import place_batch, set_trainable
+    from mfas_tpu_torch.engine.mmimdb import MMIMDBEngine
+
+    phase("MM-IMDB (m3) warm train steps, full width, B=64")
+    n_warm, n_timed, n_prof = MM_WARM
+    args = mmain.parse_args(["--datadir", store, *MM_ARGV])
+    loader = MMIMDBLoader(MM_IMDB(store, stage="train", feat_dim=300,
+                                  average_text=True,
+                                  len_data=MM_SPLITS["train"]),
+                          args.batchsize, shuffle=True)
+    it = iter(loader)
+    times = []
+    for _ in range(n_warm + n_timed):
+        t0 = time.perf_counter()
+        batch = place_batch(next(it), "cuda")
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    out = {"loader_batch_ms": float(np.median(times[n_warm:])) * 1e3,
+           "loader_batch_ms_all": [t * 1e3 for t in times]}
+
+    model = mmain.build_model(args, "cuda")
+    engine = MMIMDBEngine(model, "cuda")
+    for name, prefixes in (("whole", None),
+                           ("central", model.central_params())):
+        set_trainable(model, prefixes)
+        model.train()
+        opt = make_adam(model.parameters(), engine.weight_decay)
+        times = []
+        for i in range(n_warm + n_timed):
+            if i == n_warm:
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            loss = engine._train_step(batch, opt, args.eta_max)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            check(np.isfinite(float(loss)), f"m3 {name}: loss {loss}")
+        ms = float(np.median(times[n_warm:])) * 1e3
+        r = {"step_ms": ms, "train_samples_per_s": args.batchsize / ms * 1e3,
+             "peak_bytes": torch.cuda.max_memory_allocated(),
+             "step_ms_all": [t * 1e3 for t in times]}
+        r["profile"] = p = traced(
+            torch, work, f"mmimdb_warm_{name}",
+            lambda: engine._train_step(batch, opt, args.eta_max), n_prof)
+        r["card_state"] = card_state(f"after MM-IMDB warm {name} steps")
+        print(f"m3 {name}: {ms:.2f} ms/step, {r['train_samples_per_s']:.0f} "
+              f"train samples/s, peak {r['peak_bytes'] / 2**30:.2f} GiB; "
+              f"device busy {p['device_busy_ms']:.2f} ms "
+              f"({100 * p['busy_share']:.0f} % of the kernel span), "
+              f"{p['kernels_per_step']:.0f} kernels; "
+              + ", ".join(f"{c} {t:.2f}" for c, t in p["by_class_ms"].items())
+              + "; largest: " + ", ".join(f"{n} {t:.2f}"
+                                          for n, t in p["top_ms"][:5]),
+              flush=True)
+        out[name] = r
+        del opt
+    print(f"m3: MMIMDBLoader batch of 64 posters read, collated and placed "
+          f"on the card {out['loader_batch_ms']:.2f} ms", flush=True)
+    del model, engine, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+# A gradient vanishes analytically, holding only rounding noise, where its
+# parameter reaches the loss only as a per-channel constant ahead of a
+# train-mode BatchNorm1d. V2's conv 34 bias reaches the loss only through
+# ReLU 35, maxpool 36, the gp4 tap and bn4: its gradient on channel c is
+# sum_i g_ic * s_ic, where the g_ic, bn4's input gradient, sum to 0 over
+# the batch and s_ic is the share of sample i's pool windows whose max
+# passes the ReLU. It vanishes where each channel's s_ic is the same in
+# every sample; (m5) prints in how many channels it is. A tensor whose CPU
+# gradient is below this fraction of the step's largest (f64 rounding
+# noise of sums over the batch and the poster) is named with its max on
+# both devices; it is not held to its own max, but must stay below that
+# floor on the card too. Every other tensor is within 1e-3 of its max.
+VANISHING = 1e-12
+
+
+def mmimdb_card_vs_cpu(torch, store):
+    """(m5) The MM-IMDB device work on the card against the CPU: the
+    default net's VGG taps and three heads in eval mode on 2 posters in
+    f32, each tensor within 1e-4 of its max |value|; one whole-net train
+    step (MaxOut_MLP dropout 0) on 4 posters in float64 (train-mode
+    BatchNorm1d over 4 samples is ill-conditioned in f32), every gradient
+    within 1e-3 of its tensor's max apart from those that vanish on the
+    CPU (VANISHING); SimpleRecurrentModel over a padded batch of 4 GloVe
+    sequences in f32, within 1e-4 of max."""
+    import numpy as np
+
+    from mfas_tpu_torch import main_found_mmimdb as mmain
+    from mfas_tpu_torch.core.optim import make_adam
+    from mfas_tpu_torch.data.mm_imdb import MM_IMDB, MMIMDBLoader
+    from mfas_tpu_torch.engine.classifier import set_trainable
+    from mfas_tpu_torch.engine.mmimdb import MMIMDBEngine
+    from mfas_tpu_torch.models.mm_imdb import SimpleRecurrentModel
+
+    phase("MM-IMDB (m5) card vs CPU (taps and heads f32, step f64, GRU f32)")
+    args = mmain.parse_args(["--datadir", store, *MM_ARGV])
+
+    def first(n, average_text=True):
+        ds = MM_IMDB(store, stage="train", feat_dim=300,
+                     average_text=average_text, len_data=n)
+        b = next(iter(MMIMDBLoader(ds, n)))
+        return {k: torch.from_numpy(v) for k, v in b.items()}
+
+    def rel_dev(a, b):
+        return float((a.double().cpu() - b.double().cpu()).abs().max()
+                     / b.double().abs().max().clamp_min(1e-30))
+
+    def no_dropout(model):
+        for op in ("op2", "op4"):
+            getattr(model.text_net, op)[1].p = 0.0
+        return model
+
+    out = {}
+    b2 = first(2)
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        model = mmain.build_model(args, dev).eval()
+        with torch.no_grad():
+            img = b2["image"].to(dev)
+            taps = model.image_net(img)[:4]
+            heads = model(b2["text"].to(dev), img)
+        outs[dev] = [t.cpu() for t in (*taps, *heads)]
+        del model
+    devs = [rel_dev(a, b) for a, b in zip(outs["cuda"], outs["cpu"])]
+    out["eval_f32_dev"] = max(devs)
+    print(f"m5 taps gp1-gp4 and heads (text, image, fusion), 2 posters f32: "
+          f"deviations {', '.join(f'{d:.3e}' for d in devs)} of max")
+    check(max(devs) <= 1e-4, f"m5: eval card vs CPU {devs}")
+
+    b4 = {k: (v.double() if v.is_floating_point() else v)
+          for k, v in first(4).items()}
+    grads, losses, shares = {}, {}, {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.time()
+        model = no_dropout(mmain.build_model(args, dev).double())
+        # per poster and channel, the share of pool windows whose max
+        # passes conv 34's ReLU (the gp4 tap's input)
+        hook = model.image_net.vgg[36].register_forward_hook(
+            lambda m, i, o, dev=dev: shares.__setitem__(
+                dev, (o > 0).double().mean((2, 3)).cpu()))
+        engine = MMIMDBEngine(model, dev)
+        set_trainable(model, None)
+        model.train()
+        opt = make_adam(model.parameters(), engine.weight_decay)
+        losses[dev] = float(engine._train_step(
+            {k: v.to(dev) for k, v in b4.items()}, opt, args.eta_max))
+        hook.remove()
+        grads[dev] = {k: p.grad.detach().cpu() for k, p in
+                      model.named_parameters() if p.grad is not None}
+        print(f"m5 whole-net step f64 on {dev}: loss {losses[dev]:.12f}, "
+              f"{len(grads[dev])} grads, {time.time() - t0:.1f} s",
+              flush=True)
+        del model, engine, opt
+    check(grads["cuda"].keys() == grads["cpu"].keys(),
+          "m5: the two devices differ in gradients")
+    largest = max(float(v.abs().max()) for v in grads["cpu"].values())
+    floor = VANISHING * largest
+    vanished = {k: {"cpu_max": float(v.abs().max()),
+                    "card_max": float(grads["cuda"][k].abs().max())}
+                for k, v in grads["cpu"].items()
+                if float(v.abs().max()) < floor}
+    devs = {k: float((grads["cuda"][k] - v).abs().max() / v.abs().max())
+            for k, v in grads["cpu"].items() if k not in vanished}
+    worst = max(devs, key=devs.get)
+    equal = {dev: int((s == s[0]).all(0).sum()) for dev, s in shares.items()}
+    out["step_f64_loss_rel"] = abs(losses["cuda"] - losses["cpu"]) / abs(
+        losses["cpu"])
+    out["step_f64_grad_dev"], out["step_f64_grad_dev_tensor"] = (devs[worst],
+                                                                  worst)
+    out["step_f64_largest_grad"] = largest
+    out["step_f64_vanished"] = vanished
+    out["conv34_equal_share_channels"] = equal
+    print(f"m5 step f64, 4 posters: loss {out['step_f64_loss_rel']:.3e} "
+          f"relative; largest gradient deviation {devs[worst]:.3e} of max "
+          f"({worst}) over {len(devs)} tensors; the largest gradient "
+          f"{largest:.3e}")
+    for k, v in vanished.items():
+        print(f"m5 vanished, not compared: {k} max |grad| {v['cpu_max']:.3e} "
+              f"on the CPU, {v['card_max']:.3e} on the card (floor "
+              f"{floor:.3e})")
+    print(f"m5 conv 34's ReLU share per channel the same in all 4 posters: "
+          f"{equal['cpu']} of {shares['cpu'].shape[1]} channels on the CPU, "
+          f"{equal['cuda']} on the card")
+    check(devs[worst] <= 1e-3, f"m5: step card vs CPU {worst}: "
+          f"{devs[worst]}")
+    check(all(v["card_max"] < floor for v in vanished.values()),
+          f"m5: a gradient vanished on the CPU but not on the card: "
+          f"{vanished}")
+
+    padded = first(4, average_text=False)
+    rnn = {}
+    for dev in ("cuda", "cpu"):
+        model = SimpleRecurrentModel(
+            args, number_input_feats=300, device=dev,
+            generator=torch.Generator().manual_seed(SEED)).eval()
+        with torch.no_grad():
+            rnn[dev] = model(padded["text"].to(dev),
+                             padded["textlen"].to(dev)).cpu()
+    out["recurrent_f32_dev"] = rel_dev(rnn["cuda"], rnn["cpu"])
+    print(f"m5 SimpleRecurrentModel over text {tuple(padded['text'].shape)} "
+          f"(lengths {padded['textlen'].tolist()}), f32: deviation "
+          f"{out['recurrent_f32_dev']:.3e} of max")
+    check(out["recurrent_f32_dev"] <= 1e-4,
+          f"m5: SimpleRecurrentModel card vs CPU {out['recurrent_f32_dev']}")
+    torch.cuda.empty_cache()
+    return out
+
+
+def mmimdb_phase(torch, tk, work):
+    """(m1)-(m5); the input kernels launch nowhere on this path."""
+    tk.reset_launch_counts()
+    store = write_mmimdb_store(torch, os.path.join(work, "mmimdb"), seed=7)
+    out = mmimdb_found(torch, work, store)
+    out["m3_warm"] = mmimdb_warm_steps(torch, work, store)
+    out["m5_card_vs_cpu"] = mmimdb_card_vs_cpu(torch, store)
+    shutil.rmtree(store)
+    out["input_kernel_launches"] = dict(tk.launch_counts)
+    check(sum(tk.launch_counts.values()) == 0,
+          f"the MM-IMDB path launched {tk.launch_counts}")
+    return out
+
+
 # the least time of the input kernels at (20,8,256,256,3): each uint8 byte
 # read once and each output written once at 3.35 TB/s (their 2 operations
 # per element at 67 TFLOP/s f32 take ~1 us: bytes bound them)
@@ -1662,6 +2088,8 @@ def main():
         search["card_vs_cpu"] = search_card_vs_cpu(torch, packed)
         torch.cuda.empty_cache()
         avmnist = avmnist_phase(torch, tk, work)
+        torch.cuda.empty_cache()
+        mmimdb = mmimdb_phase(torch, tk, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1675,14 +2103,25 @@ def main():
                       "card_vs_cpu_step": step, "nvidia_smi": smi}))
     print(json.dumps({"search": search, "nvidia_smi": smi}))
     print(json.dumps({"avmnist": avmnist, "nvidia_smi": smi}))
+    print(json.dumps({"mmimdb": mmimdb, "nvidia_smi": smi}))
     src = "mfas_tpu_torch/csrc/input_kernels.cu"
     # launches: K1's on its two main paths (streamed training, one per
     # train, dev and test batch; the default search, s1), K2's on the
-    # resident training run. No single PyTorch call computes either kernel's
-    # function, so library_ms is null (gather + K1 stands beside K2 in the
-    # kernel_times line)
+    # resident training run; the AV-MNIST and MM-IMDB paths launch neither.
+    # No single PyTorch call computes either kernel's function, so
+    # library_ms is null (gather + K1 stands beside K2 in the kernel_times
+    # line)
+    others = {f"{name}_phase": {k: phase_out["input_kernel_launches"][k]
+                                for k in ("u8_normalize",
+                                          "u8_gather_normalize")}
+              for name, phase_out in (("avmnist", avmnist),
+                                      ("mmimdb", mmimdb))}
     k1_paths = {"found_training_packed_f32": train["b_packed_f32"]["launches"],
-                "search_default_s1": search["s1_default"]["k1_launches"]}
+                "search_default_s1": search["s1_default"]["k1_launches"],
+                **{k: v["u8_normalize"] for k, v in others.items()}}
+    k2_paths = {"found_training_resident_f32":
+                train["a_resident_f32"]["launches"],
+                **{k: v["u8_gather_normalize"] for k, v in others.items()}}
     bound = input_kernel_bound_ms(4)
     f32 = ms["f32"]
     # ms and plain_ms under the spin timer; both timers' readings beside
@@ -1696,7 +2135,7 @@ def main():
          "ms_by_timer": f32["K1"], "plain_ms_by_timer": f32["K1_plain"]},
         {"name": "u8_gather_normalize", "route": "cuda", "source": src,
          "replaces": "mfas_tpu/ops/input_kernels.py:174",
-         "launches": train["a_resident_f32"]["launches"],
+         "launches": sum(k2_paths.values()), "launches_by_path": k2_paths,
          "max_abs_err": err["u8_gather_normalize"], "ms": f32["K2"]["spin"],
          "plain_ms": f32["K2_plain"]["spin"], "bound_ms": bound,
          "bound_by": "bytes", "library_ms": None,

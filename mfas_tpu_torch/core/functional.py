@@ -86,3 +86,34 @@ def cross_entropy(logits, labels, weights=None):
     if weights is None:
         return nll.mean()
     return (nll * weights).sum() / torch.clamp(weights.sum(), min=1.0)
+
+
+def weighted_bce_elements(logits, targets, pos_weight, stable=False):
+    """Per-element weighted BCE terms (mfas_tpu/core/functional.py:373-391).
+
+    ``stable=False`` is the reference formula
+    ``pw*z*-log(sigmoid(x)) + (1-z)*-log(1-sigmoid(x))`` (reference
+    aux_models.py:129-147), overflow NaNs included: at x >= ~17 in f32
+    sigmoid rounds to 1, so a positive label gives 0*inf = NaN, which the
+    MM-IMDB engine's NaN escape relies on. Below x ~ -88.72 exp(-x)
+    overflows and a negative label NaNs too; between -88.72 and -87.34 XLA
+    on the CPU flushes sigmoid's subnormal result to 0 (NaN there in JAX)
+    while torch keeps it (finite here).
+
+    ``stable=True`` is the algebraically equal logsumexp form
+    ``pw*z*softplus(-x) + (1-z)*(x + softplus(-x))``, exact for all x
+    (``logaddexp``, as jax.nn.softplus: torch's softplus switches to the
+    identity above 20).
+    """
+    z = targets
+    if stable:
+        sp = torch.logaddexp(-logits, torch.zeros_like(logits))
+        return pos_weight * z * sp + (1.0 - z) * (logits + sp)
+    x = torch.sigmoid(logits)
+    return pos_weight * z * -torch.log(x) + (1.0 - z) * -torch.log(1.0 - x)
+
+
+def weighted_bce_with_logits(logits, targets, pos_weight, stable=False):
+    """Mean-reduced weighted BCE (see weighted_bce_elements)."""
+    return weighted_bce_elements(logits, targets, pos_weight,
+                                 stable=stable).mean()

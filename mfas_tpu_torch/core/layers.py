@@ -234,6 +234,21 @@ class MaxPool2d(nn.Module):
 # --------------------------------------------------------------------------
 # reference-specific small modules
 # --------------------------------------------------------------------------
+class Maxout(nn.Module):
+    """Linear(d -> m*k), then the max over each group of k
+    (aux_models.py:78-91)."""
+
+    def __init__(self, d, m, k, *, device, generator):
+        super().__init__()
+        self.d_out, self.pool_size = int(m), int(k)
+        self.lin = Linear(d, m * k, device=device, generator=generator)
+
+    def forward(self, x):
+        out = self.lin(x)
+        return out.reshape(*x.shape[:-1], self.d_out,
+                           self.pool_size).amax(dim=-1)
+
+
 class AlphaScalarMultiplication(nn.Module):
     """x*sigmoid(alpha), y*(1-sigmoid(alpha)) gate (aux_models.py:94-111).
     The fusion nets re-init alpha_x ~ N(0, 0.1)

@@ -1,12 +1,13 @@
-"""Recurrent layers (port of mfas_tpu/core/rnn.py: the LSTM).
+"""Recurrent layers (port of mfas_tpu/core/rnn.py: the LSTM and the GRU).
 
-torch ``nn.LSTM(num_layers=1)`` semantics and ``state_dict`` names
-(``weight_ih_l0``, ``weight_hh_l0``, ``bias_ih_l0``, ``bias_hh_l0``), gate
-order i, f, g, o. Unlike ``nn.LSTM``, the initial weights come from the
-explicit ``torch.Generator`` passed in, never from the global RNG:
+torch ``nn.LSTM``/``nn.GRU(num_layers=1)`` semantics and ``state_dict``
+names (``weight_ih_l0``, ``weight_hh_l0``, ``bias_ih_l0``, ``bias_hh_l0``).
+Unlike torch's modules, the initial weights come from the explicit
+``torch.Generator`` passed in, never from the global RNG:
 U(-1/sqrt(H), 1/sqrt(H)) for all four, drawn in that order. The time loop
 is a Python loop, one step per sequence element (the surrogate's sequences
-are at most ``--max_fusions`` long). Time-major only: (T, B, in).
+are at most ``--max_fusions`` long, MM-IMDB's padded GloVe sequences a
+power-of-two bucket).
 """
 
 from __future__ import annotations
@@ -19,12 +20,14 @@ from torch import nn
 from mfas_tpu_torch.core import init as I
 
 
-class LSTM(nn.Module):
+class _RNNBase(nn.Module):
+    """The four weights of a one-layer RNN of ``gates`` gates."""
+
     def __init__(self, input_size, hidden_size, *, device, generator):
         super().__init__()
         self.input_size = int(input_size)
         self.hidden_size = int(hidden_size)
-        g, h, i = 4, self.hidden_size, self.input_size
+        g, h, i = self.gates, self.hidden_size, self.input_size
         init = I.uniform(-1.0 / math.sqrt(h), 1.0 / math.sqrt(h))
 
         def draw(shape):
@@ -34,6 +37,12 @@ class LSTM(nn.Module):
         self.weight_hh_l0 = draw((g * h, h))
         self.bias_ih_l0 = draw((g * h,))
         self.bias_hh_l0 = draw((g * h,))
+
+
+class LSTM(_RNNBase):
+    """Gate order i, f, g, o. Time-major only: (T, B, in)."""
+
+    gates = 4
 
     def forward(self, x, state=None):
         """x: (T, B, in) -> (outputs (T, B, H), (h_T, c_T))."""
@@ -54,3 +63,28 @@ class LSTM(nn.Module):
             h = torch.sigmoid(o_) * torch.tanh(c)
             outs.append(h)
         return torch.stack(outs), (h, c)
+
+
+class GRU(_RNNBase):
+    """Gate order r, z, n with n = tanh(W_in x + b_in + r*(W_hn h + b_hn)).
+    Batch-first only: (B, T, in)."""
+
+    gates = 3
+
+    def forward(self, x):
+        """x: (B, T, in) -> (outputs (B, T, H), h_T), from h_0 = 0."""
+        B, T = x.shape[0], x.shape[1]
+        h = x.new_zeros((B, self.hidden_size))
+        x_proj = (torch.einsum("bti,gi->btg", x, self.weight_ih_l0)
+                  + self.bias_ih_l0)
+        outs = []
+        for t in range(T):
+            xr, xz, xn = x_proj[:, t].chunk(3, dim=-1)
+            hr, hz, hn = (h @ self.weight_hh_l0.T
+                          + self.bias_hh_l0).chunk(3, dim=-1)
+            r = torch.sigmoid(xr + hr)
+            z = torch.sigmoid(xz + hz)
+            n = torch.tanh(xn + r * hn)
+            h = (1.0 - z) * n + z * h
+            outs.append(h)
+        return torch.stack(outs, dim=1), h

@@ -48,5 +48,12 @@ def test_port_imports_neither_jax_nor_mfas_tpu():
                  "mfas_tpu_torch.data.loader",
                  "mfas_tpu_torch.runtime.cli",
                  "mfas_tpu_torch.main_searchable_avmnist",
-                 "mfas_tpu_torch.main_found_avmnist"):
+                 "mfas_tpu_torch.main_found_avmnist",
+                 "mfas_tpu_torch.core.functional",
+                 "mfas_tpu_torch.core.layers",
+                 "mfas_tpu_torch.models.vgg",
+                 "mfas_tpu_torch.models.mm_imdb",
+                 "mfas_tpu_torch.data.mm_imdb",
+                 "mfas_tpu_torch.engine.mmimdb",
+                 "mfas_tpu_torch.main_found_mmimdb"):
         assert name in res["modules"]

@@ -4,7 +4,8 @@ small size:
 * a search interrupted after its first step and resumed in a fresh process
   (another numpy seed) ends as the uninterrupted one, dropout on; the
   --jsonl_log holds one event per EPNAS step;
-* --sequential_candidates and --weightsharing each run a step; the
+* --sequential_candidates and --weightsharing each run a step (over 6 of
+  the 32 one-row confs, each trained through the engine); the
   weight-sharing store holds the JAX package's keys;
 * --cache_features builds its bank once for the whole search;
 * ``train_track_acc(seed=...)``: two candidates draw different dropout
@@ -74,9 +75,27 @@ def test_resumed_search_reproduces_uninterrupted(root, monkeypatch):
         [(c.tobytes(), a) for c, a in full.top]
 
 
+# the one-row confs a sequential first step trains here: 6 of the 32
+# [ske tap, rgb tap, activation] rows, every tap and both activations
+FIRST_STEP = [[0, 0, 0], [1, 2, 1], [2, 3, 0], [3, 1, 0], [3, 1, 1],
+              [1, 0, 1]]
+
+
+@pytest.fixture
+def one_torch_thread():
+    """One intra-op thread: the sequential paths run thousands of tiny ops,
+    which several test workers' thread pools on the same cores slow down
+    by an order of magnitude."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("flag", ["--sequential_candidates",
                                   "--weightsharing"])
-def test_sequential_paths_run_one_step(root, flag, monkeypatch):
+def test_sequential_paths_run_one_step(root, flag, monkeypatch,
+                                       one_torch_thread):
     stores = []
     orig = ttrainers.SequentialSearchTrainer.__call__
 
@@ -86,20 +105,22 @@ def test_sequential_paths_run_one_step(root, flag, monkeypatch):
         return out
 
     monkeypatch.setattr(ttrainers.SequentialSearchTrainer, "__call__", spy)
+    monkeypatch.setattr(tfntu, "get_possible_layer_configurations",
+                        lambda progression_index=None: FIRST_STEP)
     run = tmain.main(argv_of(root, flag, "--search_iterations", "1",
                              "--max_fusions", "1", "--batchnorm"),
                      device="cpu")
-    assert run.candidates == 32 and len(stores) == 1
+    assert run.candidates == len(FIRST_STEP) and len(stores) == 1
     assert set(run.split) == {"sampler", "sequential candidates",
                               "surrogate"}
     accs = [a for _, a in run.top]
     assert len(accs) == 5 and all(0.0 <= a <= 1.0 for a in accs)
     if flag == "--weightsharing":
         # one key '0.L_{in}_16.A_{act}' per distinct tap-pair width and
-        # activation, each with the Linear and the BatchNorm state
+        # activation trained, each with the Linear and the BatchNorm state
         ske, ims = tfntu.tap_sizes(tmain.parse_args(SMALL))
-        keys = {f"0.L_{a + b}_16.A_{act}" for a in ske for b in ims
-                for act in ("relu", "sigmoid")}
+        keys = {f"0.L_{ske[a] + ims[b]}_16.A_{('relu', 'sigmoid')[act]}"
+                for a, b, act in FIRST_STEP}
         store = stores[0]
         assert set(store) == keys
         entry = store["0.L_640_16.A_relu"]
