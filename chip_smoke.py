@@ -49,7 +49,8 @@
    with the CLI's defaults (12 EPNAS steps, 197 candidates) on a store whose
    trainexp split is the train clips and whose dev split holds one clip of
    each class: (s1) default, (s2) --cache_features, (s3) a sequential
-   --weightsharing step, (s4) a search state written and resumed; each with
+   --weightsharing step over 8 of its 32 rows, (s4) a search state written
+   and resumed; each with
    K1's exact launch count and output dtype, the candidates trained, finite
    accuracies and the top-5, and its wall time split into feature
    extraction, population steps, surrogate and sampler (search_phase); the
@@ -68,9 +69,10 @@
    55,000 train + 10,000 test samples with --save_checkpoint, whose
    --test_cp must print the same Model Acc, then warm phase-2 steps timed
    and profiled; on 7,200 train samples through
-   ``mfas_tpu_torch.main_searchable_avmnist``: (v2) the default EPNAS
-   search (195 candidates; the first step's accuracies not all equal, the
-   best above 0.2), (v3) --cache_features, (v4) --randsearch written after
+   ``mfas_tpu_torch.main_searchable_avmnist``: (v2) the EPNAS search at
+   its defaults cut to one search iteration (75 candidates; the first
+   step's accuracies not all equal, the best above 0.2), (v3)
+   --cache_features, (v4) --randsearch written after
    its first iteration and resumed; (v5) the extractor's taps card against
    CPU in f32 (1e-4 of max, buffers unchanged) and one found phase-2 step in
    f64 (1e-3 of max). Neither input kernel may launch on this path;
@@ -89,14 +91,30 @@
    step in f64 (1e-3 of max; a gradient that vanishes on the CPU is named
    and must stay below 1e-12 of the largest on the card),
    SimpleRecurrentModel in f32 (1e-4). Neither
-   input kernel may launch on this path.
+   input kernel may launch on this path;
+14. the CIFAR vertical (cifar_phase) on cifar-10-batches-py stores written
+   on the card (uint8 noise plus a colour per class): (c1) the found net at
+   the CLI's defaults (fixed mode, --planes 36 doubling to 144, 8 cells,
+   B=128, --drop_path 0.1 --drop_prob 0.2) trained one epoch through
+   ``mfas_tpu_torch.main_found_cifar`` on 45,000 / 5,000 / 10,000 images
+   with --use_intermediate --save_checkpoint (finite losses, Model Acc
+   above 0.2); (c2) its warm train steps timed and profiled, and the
+   loader's batch apart; (c5) the search- and fixed-mode nets card against
+   CPU in f32 (1e-4 of max), a fixed-mode step in f64 (1e-3 of max, the
+   parameters without a gradient as built), DropPath's kept share; (c3) a
+   cut EPNAS search through ``mfas_tpu_torch.main_searchable_cifar`` (80 +
+   4 whole-net candidates on 2,304 / 256 images), its state resumed after
+   the first step to the uninterrupted run's confs and accuracies; (c4) a
+   --weightsharing step whose store holds the last candidate's keys only.
+   Neither input kernel may launch on this path.
 
 mfas_tpu_torch/scripts/archive_smoke.sh runs this script from a git archive
 of the tree and alone in an empty directory.
 
 TF32 is off throughout. Any failed check exits non-zero. Before the last
 lines come {"slice": ...}, {"training": ...}, {"search": ...},
-{"avmnist": ...} and {"mmimdb": ...} with the measured numbers; then {"kernels": [...]} with
+{"avmnist": ...}, {"mmimdb": ...} and {"cifar": ...} with the measured
+numbers; then {"kernels": [...]} with
 each kernel's launches on the main paths, time, plain version's time and
 bound; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero.
@@ -817,6 +835,7 @@ def card_vs_cpu(torch, packed):
 SEARCH_ARGV = ["--device_input_normalize", "--random_backbones",
                "--no-verbose", "--seed", str(SEED)]
 SEARCH_DEV = 60     # one dev clip of each of the 60 classes
+SEARCH_WS_ROWS = 8  # (s3): the first step cut to this many of its 32 rows
 
 
 def write_search_store(work, packed):
@@ -915,12 +934,15 @@ def search_phase(torch, work, packed):
          12 populations and once per dev batch: 2 x 3 x 12 + 3 = 75;
     (s2) --cache_features --batchnorm: bf16 bank built once, K1 (bf16 out)
          once per train and dev batch over the whole search: 3;
-    (s3) --weightsharing --search_iterations 1 --max_fusions 1 --epochs 1:
-         32 candidates trained one at a time, K1 in each of their batches;
+    (s3) --weightsharing --search_iterations 1 --max_fusions 1 --epochs 1
+         --num_samples 4 over the first SEARCH_WS_ROWS of the 32 one-layer
+         rows (the step's closing sample draws 4 of them): candidates
+         trained one at a time, K1 in each of their batches;
     (s4) (s2) with --search_iterations 1 --search_state F, then
          --search_iterations 2 --resume_search: the resume line, only
          iteration 1's four populations (60 candidates), one bank rebuild.
     """
+    from mfas_tpu_torch.fusion import ntu as f_ntu
     from mfas_tpu_torch.ops import input_kernels as tk
 
     phase("NTU search, full width")
@@ -943,11 +965,18 @@ def search_phase(torch, work, packed):
             torch, tk, seen, "s2 --cache_features --batchnorm",
             base + ["--cache_features", "--batchnorm"], tb + db, bf16,
             32 + (pops - 1) * k)
-        out["s3_weightsharing"], _, _ = _search_run(
-            torch, tk, seen, "s3 sequential --weightsharing",
-            base + ["--weightsharing", "--search_iterations", "1",
-                    "--max_fusions", "1", "--epochs", "1"],
-            32 * (tb + db), f32, 32)
+        rows = f_ntu.get_possible_layer_configurations(0)[:SEARCH_WS_ROWS]
+        layer_confs = f_ntu.get_possible_layer_configurations
+        f_ntu.get_possible_layer_configurations = lambda i: rows
+        try:
+            out["s3_weightsharing"], _, _ = _search_run(
+                torch, tk, seen, "s3 sequential --weightsharing",
+                base + ["--weightsharing", "--search_iterations", "1",
+                        "--max_fusions", "1", "--epochs", "1",
+                        "--num_samples", "4"],
+                SEARCH_WS_ROWS * (tb + db), f32, SEARCH_WS_ROWS)
+        finally:
+            f_ntu.get_possible_layer_configurations = layer_confs
         bank = base + ["--cache_features", "--batchnorm", "--search_state",
                        state]
         out["s4_first"], _, _ = _search_run(
@@ -1218,6 +1247,9 @@ AV_CHUNK = 5000
 AV_LABEL_STEP = 0.08        # make_synthetic_avmnist's image shift per class
 AV_FOUND_ARGV = ["--conf", "0", "--random_backbones", "--epochs", "1"]
 AV_SEARCH_ARGV = ["--random_backbones", "--no-verbose", "--seed", str(SEED)]
+# (v2), (v3): the default 3 search iterations cut to 1, so the whole script
+# keeps within its time with the CIFAR phase added
+AV_SEARCH_ITERATIONS = "1"
 AV_WARM = (3, 20, 3)        # warm phase-2 steps: untimed, timed, profiled
 
 
@@ -1392,13 +1424,11 @@ def avmnist_warm_steps(torch, work, store):
     return r
 
 
-def _avmnist_search(torch, name, argv, want_candidates):
-    """One in-process ``mfas_tpu_torch.main_searchable_avmnist`` run: the
-    candidates trained, every accuracy finite in [0, 1]; returns the
-    measured numbers, the run and its standard output."""
+def _cli_search(torch, smain, name, argv, want_candidates):
+    """One in-process search through ``smain.main`` (a search CLI of the
+    port): the candidates trained, every accuracy finite in [0, 1];
+    returns the measured numbers, the run and its standard output."""
     import numpy as np
-
-    from mfas_tpu_torch import main_searchable_avmnist as smain
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1431,30 +1461,33 @@ def _avmnist_search(torch, name, argv, want_candidates):
 
 
 def avmnist_search(torch, work, store):
-    """(v2) the default EPNAS search (--channels 32, hidden 16, B=128, 3
-    epochs, 15 samples, 3 iterations x 4 fusions: 30 + 11 x 15 = 195
-    candidates) on streamed train-mode features; its first step's 30
-    accuracies must not all be equal and its best accuracy must beat 0.2
-    (chance is 0.1). (v3) the same with --cache_features (bf16 bank).
+    """(v2) the EPNAS search at the CLI's defaults (--channels 32, hidden
+    16, B=128, 3 epochs, 15 samples, 4 fusions) cut to --search_iterations
+    1 (from 3; AV_SEARCH_ITERATIONS): 30 + 3 x 15 = 75 candidates, on
+    streamed train-mode features; its first step's 30 accuracies must not
+    all be equal and its best accuracy must beat 0.2 (chance is 0.1). (v3)
+    the same with --cache_features (bf16 bank).
     (v4) --randsearch --search_iterations 1 (4 iterations of 15), its
     state copied after the first iteration, then resumed from that copy in
     a fresh main call: the resume line, the 3 remaining iterations, and
     the uninterrupted run's confs and accuracies."""
     import numpy as np
 
+    from mfas_tpu_torch import main_searchable_avmnist as smain
     from mfas_tpu_torch.search import searcher as tsearcher
 
     phase("AV-MNIST (v2)-(v4) search, full width")
     base = ["--datadir", store, "--checkpointdir", work, *AV_SEARCH_ARGV]
     out = {}
-    r, run, _ = _avmnist_search(torch, "v2 default search", base, 195)
+    cut = ["--search_iterations", AV_SEARCH_ITERATIONS]
+    r, run, _ = _cli_search(torch, smain, "v2 search", base + cut, 75)
     first = [a for L, e in run.data.state() if L == 1 for _, a in e]
     check(len(first) == 30 and r["first_step_distinct"] > 1,
           f"v2: first step accuracies {first} all equal")
     check(r["best_acc"] > 0.2, f"v2: best accuracy {r['best_acc']} <= 0.2")
-    out["v2_default"] = r
-    out["v3_cache_features"], _, _ = _avmnist_search(
-        torch, "v3 --cache_features", base + ["--cache_features"], 195)
+    out["v2_search"] = r
+    out["v3_cache_features"], _, _ = _cli_search(
+        torch, smain, "v3 --cache_features", base + cut + ["--cache_features"], 75)
 
     state = os.path.join(work, "avmnist_rand.pkl")
     first_state = state + ".first"
@@ -1469,15 +1502,15 @@ def avmnist_search(torch, work, store):
 
     tsearcher.ModelSearcher._save_state = save
     try:
-        out["v4_randsearch"], full, _ = _avmnist_search(
-            torch, "v4 --randsearch", rand, 60)
+        out["v4_randsearch"], full, _ = _cli_search(
+            torch, smain, "v4 --randsearch", rand, 60)
     finally:
         tsearcher.ModelSearcher._save_state = orig
     resume = [a for a in base if a != "--no-verbose"] + [
         "--randsearch", "--search_iterations", "1", "--search_state",
         first_state, "--resume_search"]
-    out["v4_resumed"], resumed, text = _avmnist_search(
-        torch, "v4 resumed", resume, 45)
+    out["v4_resumed"], resumed, text = _cli_search(
+        torch, smain, "v4 resumed", resume, 45)
     line = "Resuming random search after iteration 0"
     check(line in text, f"v4: no '{line}' in the resumed run's output")
 
@@ -2025,6 +2058,504 @@ def mmimdb_phase(torch, tk, work):
     return out
 
 
+# CIFAR: cifar-10-batches-py stores drawn on the card, the CLIs' defaults
+# otherwise (--planes 36, --net_str 1 1 2 1 1 2 1 1, B=128)
+CIFAR_FOUND_STORE = (10000, 10000)      # images per data_batch file, test
+CIFAR_SEARCH_STORE = (512, 16)          # 2,560 train: 2,304 train, 256 dev
+CIFAR_FOUND_ARGV = ["--epochs", "1", "--use_intermediate"]
+CIFAR_SEARCH_ARGV = ["--epochs", "1", "--search_iterations", "1",
+                     "--max_fusions", "2", "--num_samples", "4",
+                     "--no-verbose", "--seed", str(SEED)]
+CIFAR_WS_ROWS = 4           # (c4): the first step cut to this many rows
+CIFAR_WARM = (3, 20, 5)     # warm train steps: untimed, timed, profiled
+CIFAR_STEP_IMAGES = 16      # (c5) the f64 step's batch
+CIFAR_DROPPATH_DRAWS = 2000
+
+
+def write_cifar_store(torch, root, per_file, n_test, seed):
+    """A cifar-10-batches-py store (5 train files of ``per_file`` images,
+    a test file of ``n_test``) in the layout of mfas_tpu_torch/data/
+    cifar.py, drawn on the card: uniform labels over 10 classes, each
+    image uint8 noise U[0, 128) plus its class's colour, a shift in
+    [0, 128) per channel drawn once, so one epoch can learn the classes."""
+    import pickle
+
+    t0 = time.time()
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    colours = torch.randint(0, 128, (10, 3, 1), device="cuda", generator=g)
+    base = os.path.join(root, "cifar-10-batches-py")
+    os.makedirs(base)
+    for name, n in [(f"data_batch_{i}", per_file) for i in range(1, 6)] + [
+            ("test_batch", n_test)]:
+        labels = torch.randint(0, 10, (n,), device="cuda", generator=g)
+        noise = torch.randint(0, 128, (n, 3, 1024), device="cuda",
+                              generator=g)
+        data = (noise + colours[labels]).to(torch.uint8).reshape(n, 3072)
+        with open(os.path.join(base, name), "wb") as f:
+            pickle.dump({b"data": data.cpu().numpy(),
+                         b"labels": labels.cpu().tolist()}, f)
+    print(f"CIFAR store of 5 x {per_file} train + {n_test} test images "
+          f"written in {time.time() - t0:.1f} s", flush=True)
+    return root
+
+
+def cifar_found(torch, work, store):
+    """(c1) ``mfas_tpu_torch.main_found_cifar`` at the CLI's defaults
+    (fixed mode, --planes 36 doubling to 144, 8 cells, B=128, --drop_path
+    0.1 --drop_prob 0.2) with --epochs 1 --use_intermediate
+    --save_checkpoint on 45,000 / 5,000 / 10,000 images: finite losses,
+    Model Acc above 0.2 (chance is 0.1), the checkpoint loads into a fresh
+    net with strict keys."""
+    import numpy as np
+
+    from mfas_tpu_torch import main_found_cifar as fmain
+    from mfas_tpu_torch.runtime.checkpoint import load_state_dict
+
+    phase("CIFAR (c1) found net, full width")
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    run, out = _quiet(fmain.main, ["--data_dir", store, "--checkpointdir",
+                                   work, *CIFAR_FOUND_ARGV,
+                                   "--save_checkpoint"])
+    seconds = time.time() - t0
+    epochs = run.train[0].epochs
+    losses = [e["loss"] for e in epochs]
+    check(all(np.isfinite(losses)) and run.acc > 0.2,
+          f"c1: losses {losses}, Model Acc {run.acc}")
+    check(f"Model Acc: {run.acc}" in out, "c1: no Model Acc line")
+    args = fmain.parse_args([])
+    fresh = fmain.build_model(args, fmain.parse_conf(args.conf), "cpu")
+    fresh.load_state_dict(load_state_dict(run.saved), strict=True)
+    check(args.planes == 144, f"c1: --planes ended at {args.planes}")
+    t = run.train[0]
+    r = {"seconds": seconds, "model_acc": run.acc, "epochs": epochs,
+         "train_samples_per_s": t.train_clips / t.train_seconds,
+         "train_seconds": t.train_seconds,
+         "peak_bytes": run.train_peak_bytes[0],
+         "eval_samples_per_s": run.eval.clips / run.eval.seconds,
+         "checkpoint": os.path.basename(run.saved),
+         "parameters": sum(p.numel() for p in fresh.parameters())}
+    print(f"c1: {seconds:.1f} s; Model Acc {run.acc}; epochs "
+          + ", ".join(f"{e['phase']} {e['loss']:.4f}/{e['acc']:.4f}"
+                      for e in epochs)
+          + f"; {r['train_samples_per_s']:.0f} train samples/s (the epoch, "
+          f"loader included), peak {r['peak_bytes'] / 2**30:.2f} GiB "
+          f"allocated; test {r['eval_samples_per_s']:.0f} samples/s; "
+          f"{r['parameters']} parameters; {run.saved} loads strict",
+          flush=True)
+    return r
+
+
+def cifar_warm_steps(torch, work, store):
+    """(c2) warm train steps of the (c1) net (--use_intermediate, train-
+    mode DropPath and dropout) on one placed batch of 128: the median of
+    CIFAR_WARM's timed steps after its untimed ones, peak memory, the same
+    steps with torch's plain Adam step in place of the engine's skip of
+    all-zero gradients, then profiled steps (device time by kernel class, busy share, kernels per
+    step); and the host side apart: the train CifarLoader's batch (128
+    images cropped, flipped and normalized in numpy) placed on the card."""
+    import numpy as np
+
+    from mfas_tpu_torch import main_found_cifar as fmain
+    from mfas_tpu_torch.data.cifar import (CifarLoader, load_cifar10_arrays,
+                                           train_split)
+    from mfas_tpu_torch.engine.cifar import CifarEngine
+    from mfas_tpu_torch.engine.classifier import place_batch, set_trainable
+
+    phase("CIFAR (c2) warm train steps, full width, B=128")
+    n_warm, n_timed, n_prof = CIFAR_WARM
+    args = fmain.parse_args(["--data_dir", store, *CIFAR_FOUND_ARGV])
+    arrays = load_cifar10_arrays(store)
+    loader = CifarLoader(arrays, args.batchsize, train=True,
+                         indices=np.arange(0, train_split(
+                             arrays["image"].shape[0])[0]))
+    it = iter(loader)
+    times = []
+    for _ in range(n_warm + n_timed):
+        t0 = time.perf_counter()
+        batch = place_batch(next(it), "cuda")
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    loader_ms = float(np.median(times[n_warm:])) * 1e3
+
+    model = fmain.build_model(args, fmain.parse_conf(args.conf), "cuda")
+    engine = CifarEngine(model, "cuda", use_intermediate=True)
+    engine.generator.manual_seed(SEED)
+    set_trainable(model, None)
+    model.train()
+    opt = engine.make_optimizer()
+
+    def timed_steps(n_skip, n):
+        times = []
+        for i in range(n_skip + n):
+            if i == n_skip:
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            loss, _ = engine._train_step(batch, opt, args.eta_max)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            check(np.isfinite(float(loss)), f"c2: loss {loss}")
+        return times
+
+    times = timed_steps(n_warm, n_timed)
+    ms = float(np.median(times[n_warm:])) * 1e3
+    r = {"step_ms": ms, "train_samples_per_s": args.batchsize / ms * 1e3,
+         "peak_bytes": torch.cuda.max_memory_allocated(),
+         "step_ms_all": [t * 1e3 for t in times],
+         "loader_batch_ms": loader_ms}
+    # what the JAX package's skip-on-zero Adam rule costs: the same steps
+    # with torch's plain Adam step (every parameter with a grad stepped)
+    engine._optimizer_step = lambda o: o.step()
+    r["plain_adam_step_ms"] = float(np.median(timed_steps(0, n_timed))) * 1e3
+    del engine._optimizer_step
+    r["profile"] = p = traced(
+        torch, work, "cifar_warm",
+        lambda: engine._train_step(batch, opt, args.eta_max), n_prof)
+    r["card_state"] = card_state("after CIFAR warm steps")
+    print(f"c2: {ms:.2f} ms/step, {r['train_samples_per_s']:.0f} train "
+          f"samples/s, peak {r['peak_bytes'] / 2**30:.2f} GiB; device busy "
+          f"{p['device_busy_ms']:.2f} ms ({100 * p['busy_share']:.0f} % of "
+          f"the kernel span), {p['kernels_per_step']:.0f} kernels; "
+          + ", ".join(f"{c} {t:.2f}" for c, t in p["by_class_ms"].items())
+          + f"; CifarLoader batch placed on the card {loader_ms:.2f} ms; "
+          f"with torch's plain Adam step {r['plain_adam_step_ms']:.2f} "
+          f"ms/step", flush=True)
+    del model, engine, opt, batch, arrays
+    torch.cuda.empty_cache()
+    return r
+
+
+def cifar_search(torch, work, store):
+    """(c3) the EPNAS search at --planes 36 and the default --net_str
+    (search mode: cells sum their blocks, no plane doubling), B=128, cut to
+    --epochs 1 --search_iterations 1 --max_fusions 2 --num_samples 4: the
+    80 one-block confs, then 4 sampled two-block confs, each a whole net
+    trained on 2,304 images and ranked on 256. Its state is copied after
+    the first step and resumed from that copy: the resume line, 4
+    candidates, the uninterrupted run's confs, and its accuracies within
+    one dev image (cuDNN's deterministic algorithms are on for both runs).
+    (c4) a --weightsharing run of one step over CIFAR_WS_ROWS of the 80
+    rows: the store it leaves holds the last candidate's keys only."""
+    import numpy as np
+
+    from mfas_tpu_torch import main_searchable_cifar as smain
+    from mfas_tpu_torch.fusion import cifar as f_cifar
+    from mfas_tpu_torch.search import searcher as tsearcher
+    from mfas_tpu_torch.search import trainers as ttrainers
+
+    phase("CIFAR (c3) cut EPNAS search, full width")
+    base = ["--data_dir", store, "--checkpointdir", work,
+            *CIFAR_SEARCH_ARGV]
+    state = os.path.join(work, "cifar_search.pkl")
+    first_state = state + ".first"
+    orig = tsearcher.ModelSearcher._save_state
+
+    def save(self, path, *a, **k):
+        orig(self, path, *a, **k)
+        if path and not os.path.exists(first_state):
+            shutil.copy(path, first_state)
+
+    out = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    tsearcher.ModelSearcher._save_state = save
+    try:
+        out["c3_search"], full, _ = _cli_search(
+            torch, smain, "c3 search", base + ["--search_state", state], 84)
+    finally:
+        tsearcher.ModelSearcher._save_state = orig
+    try:
+        resume = [a for a in base if a != "--no-verbose"] + [
+            "--search_state", first_state, "--resume_search"]
+        out["c3_resumed"], resumed, text = _cli_search(
+            torch, smain, "c3 resumed", resume, 4)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    check(out["c3_search"]["first_step_distinct"] > 1,
+          "c3: the first step's accuracies are all equal")
+    line = "Resuming search after iteration 0 step 0"
+    check(line in text, f"c3: no '{line}' in the resumed run's output")
+
+    def pairs(data):
+        return {np.asarray(c).tobytes(): a for _, e in data.state()
+                for c, a in e}
+
+    want, got = pairs(full.data), pairs(resumed.data)
+    check(got.keys() == want.keys(), "c3: the resumed run trained other "
+          "confs than the uninterrupted one")
+    diff = max(abs(got[k] - want[k]) for k in want)
+    out["c3_resumed"]["max_acc_diff_vs_uninterrupted"] = diff
+    print(f"c3 resumed run printed '{line}'; its confs are the "
+          f"uninterrupted run's, accuracies within {diff:.3e}", flush=True)
+    check(diff <= 1.0 / 256 + 1e-7, f"c3: resumed accuracies differ by "
+          f"{diff} from the uninterrupted run's")
+
+    phase("CIFAR (c4) a sequential --weightsharing step")
+    rows = f_cifar.get_possible_layer_configurations(0)[:CIFAR_WS_ROWS]
+    layer_confs = f_cifar.get_possible_layer_configurations
+    ws_state = os.path.join(work, "cifar_ws.pkl")
+    f_cifar.get_possible_layer_configurations = lambda i: rows
+    try:
+        out["c4_weightsharing"], _, _ = _cli_search(
+            torch, smain, "c4 --weightsharing",
+            base + ["--max_fusions", "1", "--num_samples", "2",
+                    "--weightsharing", "--search_state", ws_state],
+            CIFAR_WS_ROWS)
+    finally:
+        f_cifar.get_possible_layer_configurations = layer_confs
+    store_keys = set(tsearcher.ModelSearcher.load_state(ws_state)[
+        "shared_weights"])
+    last = f_cifar.Searchable_MicroCNN(
+        smain.parse_args(base), np.asarray(rows[-1]), device="cpu",
+        generator=torch.Generator())
+    want_keys = set(ttrainers.get_cifar_states(last))
+    check(store_keys == want_keys, f"c4: the store holds "
+          f"{sorted(store_keys ^ want_keys)} against the last candidate's "
+          f"keys")
+    out["c4_weightsharing"]["store_keys"] = len(store_keys)
+    print(f"c4: the store holds the last candidate's {len(store_keys)} "
+          f"keys only", flush=True)
+    return out
+
+
+def cifar_card_vs_cpu(torch, store):
+    """(c5) The CIFAR device work on the card against the CPU: the search-
+    and fixed-mode nets at full width (eval mode, random weights from SEED)
+    on 8 images in f32, logits and aux logits within 1e-4 of each tensor's
+    max; one fixed-mode train step (--use_intermediate, drop-path 0,
+    dropout 0) on CIFAR_STEP_IMAGES images in float64: the loss within 1e-4
+    relative, every gradient and BatchNorm statistic within 1e-3 of its
+    tensor's max apart from gradients that vanish on the CPU (below 1e-12
+    of the largest: they are named and must stay below that on the card)
+    and the analytically centred running means (named; below 1e-12 of the
+    largest statistic on both devices), the parameters that get no
+    gradient bitwise as built on both devices; the same step at DropPath
+    keep ~1e-9 on the card: the dropped ops' parameters, moments and step
+    counts untouched by Adam;
+    DropPath's kept share over CIFAR_DROPPATH_DRAWS train-mode draws at
+    keep 0.9 within 0.87-0.93, the second path never dropped with the
+    first."""
+    import numpy as np
+
+    from mfas_tpu_torch import main_found_cifar as fmain
+    from mfas_tpu_torch.core.layers import BatchNorm2d, set_dropout_generator
+    from mfas_tpu_torch.data.cifar import load_cifar10_arrays, normalize
+    from mfas_tpu_torch.engine.cifar import CifarEngine
+    from mfas_tpu_torch.engine.classifier import set_trainable
+    from mfas_tpu_torch.fusion.cifar import Searchable_MicroCNN
+    from mfas_tpu_torch.models.enas_cell import CellBlock
+
+    phase("CIFAR (c5) card vs CPU (nets f32, fixed-mode step f64, DropPath)")
+    arrays = load_cifar10_arrays(store)
+    images = torch.from_numpy(normalize(arrays["image"][:CIFAR_STEP_IMAGES]))
+    labels = torch.from_numpy(arrays["label"][:CIFAR_STEP_IMAGES])
+    conf = fmain.parse_conf(fmain.parse_args([]).conf)
+
+    def net(dev, fixed, **kw):
+        return Searchable_MicroCNN(
+            fmain.parse_args([*CIFAR_FOUND_ARGV, *sum(
+                ([f"--{k}", str(v)] for k, v in kw.items()), [])]),
+            conf, fixed=fixed, device=dev,
+            generator=torch.Generator().manual_seed(SEED))
+
+    def rel_dev(a, b):
+        return float((a.double().cpu() - b.double().cpu()).abs().max()
+                     / b.double().abs().max().clamp_min(1e-30))
+
+    out = {}
+    for fixed in (False, True):
+        outs = {}
+        for dev in ("cuda", "cpu"):
+            with torch.no_grad():
+                outs[dev] = net(dev, fixed).eval()(images[:8].to(dev))
+        devs = [rel_dev(a, b) for a, b in zip(outs["cuda"], outs["cpu"])]
+        mode = "fixed" if fixed else "search"
+        out[f"{mode}_eval_f32_dev"] = max(devs)
+        print(f"c5 {mode}-mode net, 8 images f32: logits {devs[0]:.3e}, aux "
+              f"logits {devs[1]:.3e} of max", flush=True)
+        check(max(devs) <= 1e-4, f"c5: {mode}-mode card vs CPU {devs}")
+
+    batch = {"image": images.double(), "label": labels,
+             "_mask": torch.ones(CIFAR_STEP_IMAGES, dtype=torch.float64)}
+
+    def f64_step(dev, drop_path):
+        model = net(dev, True, drop_path=drop_path, drop_prob=0).double()
+        built = {k: v.detach().cpu().clone()
+                 for k, v in model.state_dict().items()}
+        engine = CifarEngine(model, dev, use_intermediate=True)
+        set_trainable(model, None)
+        model.train()
+        opt = engine.make_optimizer()
+        loss, _ = engine._train_step({k: v.to(dev) for k, v in
+                                      batch.items()}, opt, 1e-3)
+        return model, opt, built, float(loss)
+
+    grads, losses, after, built, dead = {}, {}, {}, {}, {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.time()
+        model, opt, built[dev], losses[dev] = f64_step(dev, 0)
+        grads[dev] = {k: p.grad.detach().cpu() for k, p in
+                      model.named_parameters() if p.grad is not None}
+        dead[dev] = {k for k, p in model.named_parameters()
+                     if p.grad is None}
+        after[dev] = {k: v.detach().cpu() for k, v in
+                      model.state_dict().items()}
+        print(f"c5 fixed-mode step f64 on {dev}: loss {losses[dev]:.12f}, "
+              f"{len(grads[dev])} grads, {len(dead[dev])} without, "
+              f"{time.time() - t0:.1f} s", flush=True)
+        del opt
+    check(dead["cuda"] == dead["cpu"] and dead["cpu"]
+          and all(k.startswith("pooled_layers.") for k in dead["cpu"]),
+          f"c5: parameters without a gradient {dead}")
+    for dev in ("cuda", "cpu"):
+        check(all(torch.equal(after[dev][k], built[dev][k])
+                  for k in dead[dev]),
+              f"c5: a parameter without a gradient moved on {dev}")
+    largest = max(float(v.abs().max()) for v in grads["cpu"].values())
+    floor = VANISHING * largest
+    vanished = {k: {"cpu_max": float(v.abs().max()),
+                    "card_max": float(grads["cuda"][k].abs().max())}
+                for k, v in grads["cpu"].items()
+                if float(v.abs().max()) < floor}
+    devs = {k: rel_dev(grads["cuda"][k], v)
+            for k, v in grads["cpu"].items() if k not in vanished}
+    # The first BatchNorm of an op that reads a cell's input sits behind a
+    # bias-free 1x1 conv of a BatchNorm's output, which is centred over
+    # the batch: its running mean is analytically 0 and holds rounding
+    # noise on both devices. These are named and held below the floor
+    # (VANISHING of the largest statistic); every other statistic is held
+    # within 1e-3 of its own tensor's max.
+    centred = set()
+    for c, cell in enumerate(model.cell_array):
+        for b, block in enumerate(cell.blocks):
+            for j, src in enumerate(conf[b, 2:]):
+                if src < 0:
+                    op = getattr(block, f"op{j + 1}")
+                    bn = next(n for n, m in op.named_modules()
+                              if isinstance(m, BatchNorm2d))
+                    centred.add(f"cell_array.{c}.blocks.{b}.op{j + 1}."
+                                f"{bn}.running_mean")
+    del model
+    stat_keys = [k for k in after["cpu"]
+                 if k.endswith(("running_mean", "running_var"))]
+    stat_floor = VANISHING * max(float(after["cpu"][k].abs().max())
+                                 for k in stat_keys)
+    centred_max = {k: {"cpu_max": float(after["cpu"][k].abs().max()),
+                       "card_max": float(after["cuda"][k].abs().max())}
+                   for k in sorted(centred)}
+    stats = {k: rel_dev(after["cuda"][k], after["cpu"][k])
+             for k in stat_keys if k not in centred}
+    worst, worst_stat = max(devs, key=devs.get), max(stats, key=stats.get)
+    loss_rel = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
+    out.update(step_f64_loss_rel=loss_rel, step_f64_grad_dev=devs[worst],
+               step_f64_grad_dev_tensor=worst,
+               step_f64_stat_dev=stats[worst_stat],
+               step_f64_stat_dev_tensor=worst_stat,
+               step_f64_largest_grad=largest, step_f64_vanished=vanished,
+               step_f64_centred_means=centred_max,
+               step_f64_stat_floor=stat_floor,
+               step_f64_no_grad=sorted(dead["cpu"]))
+    print(f"c5 step f64, {CIFAR_STEP_IMAGES} images: loss {loss_rel:.3e} "
+          f"relative; largest gradient deviation {devs[worst]:.3e} of max "
+          f"({worst}) over {len(devs)} tensors; BatchNorm statistics "
+          f"{stats[worst_stat]:.3e} of max ({worst_stat}) over {len(stats)} "
+          f"tensors; {len(centred)} centred running means below "
+          f"{stat_floor:.3e} (largest {max(v['cpu_max'] for v in centred_max.values()):.3e} "
+          f"CPU, {max(v['card_max'] for v in centred_max.values()):.3e} "
+          f"card); {len(dead['cpu'])} parameters without a gradient, as "
+          f"built on both devices", flush=True)
+    for k, v in vanished.items():
+        print(f"c5 vanished, not compared: {k} max |grad| {v['cpu_max']:.3e} "
+              f"on the CPU, {v['card_max']:.3e} on the card (floor "
+              f"{floor:.3e})")
+    check(loss_rel <= 1e-4, f"c5: loss {loss_rel} relative")
+    check(devs[worst] <= 1e-3, f"c5: gradient {worst}: {devs[worst]}")
+    check(stats[worst_stat] <= 1e-3,
+          f"c5: statistic {worst_stat}: {stats[worst_stat]}")
+    check(all(v["card_max"] < floor for v in vanished.values()),
+          f"c5: a gradient vanished on the CPU but not on the card: "
+          f"{vanished}")
+    check(centred and all(max(v.values()) < stat_floor
+                          for v in centred_max.values()),
+          f"c5: a centred running mean is not rounding noise: "
+          f"{centred_max}")
+
+    # the skip of all-zero gradients on the card: at keep ~1e-9 every
+    # block's first path drops, so its op (and whatever only it reads)
+    # gets an all-zero gradient and keeps its value, zero moments and step
+    # count 0; every other parameter with a grad steps once
+    model, opt, built_skip, _ = f64_step("cuda", 1.0 - 1e-9)
+    skipped, stepped = set(), set()
+    for k, p in model.named_parameters():
+        if p.grad is None:
+            continue
+        st = opt.state[p]
+        if not p.grad.any():
+            check(torch.equal(p.detach().cpu(), built_skip[k])
+                  and float(st["step"]) == 0 and not st["exp_avg"].any()
+                  and not st["exp_avg_sq"].any(),
+                  f"c5: {k}, with an all-zero gradient, was stepped on the "
+                  f"card")
+            skipped.add(k)
+        else:
+            check(float(st["step"]) == 1, f"c5: {k} was not stepped")
+            stepped.add(k)
+    op1 = {k for k in skipped | stepped if ".op1." in k}
+    check(op1 and op1 <= skipped and stepped,
+          f"c5: {sorted(op1 - skipped)} of the dropped ops got a gradient")
+    skipped, stepped = len(skipped), len(stepped)
+    out.update(skip_zero_grads_skipped=skipped,
+               skip_zero_grads_stepped=stepped)
+    print(f"c5 skip of all-zero gradients on the card, keep ~1e-9: "
+          f"{skipped} parameters with all-zero gradients ({len(op1)} of the "
+          f"dropped ops) unstepped (value, moments, step count), {stepped} "
+          f"stepped once", flush=True)
+    del model, opt
+
+    block = CellBlock(0, 2, fmain.parse_args([]), device="cuda",
+                      generator=torch.Generator()).train()
+    set_dropout_generator(block, torch.Generator(device="cuda").manual_seed(
+        SEED))
+    x = torch.ones(1, 1, device="cuda")
+    kept = both = 0
+    for _ in range(CIFAR_DROPPATH_DRAWS):
+        a, dropped = block.dp1(x)
+        b, _ = block.dp2(x, dropped)
+        kept += int(not bool(dropped))
+        both += int(bool(dropped) and not bool(b.any()))
+    share = kept / CIFAR_DROPPATH_DRAWS
+    out.update(droppath_kept_share=share, droppath_both_dropped=both)
+    print(f"c5 DropPath at keep 0.9 on the card: kept {kept} of "
+          f"{CIFAR_DROPPATH_DRAWS} ({share:.4f}); second path dropped with "
+          f"the first {both} times", flush=True)
+    check(0.87 <= share <= 0.93 and both == 0,
+          f"c5: DropPath kept share {share}, both dropped {both}")
+    torch.cuda.empty_cache()
+    return out
+
+
+def cifar_phase(torch, tk, work):
+    """(c1)-(c5); the input kernels launch nowhere on this path."""
+    tk.reset_launch_counts()
+    t0 = time.time()
+    found = write_cifar_store(torch, os.path.join(work, "cifar"),
+                              *CIFAR_FOUND_STORE, seed=8)
+    out = {"c1_found": cifar_found(torch, work, found)}
+    out["c2_warm"] = cifar_warm_steps(torch, work, found)
+    out["c5_card_vs_cpu"] = cifar_card_vs_cpu(torch, found)
+    shutil.rmtree(found)
+    search = write_cifar_store(torch, os.path.join(work, "cifar_search"),
+                               *CIFAR_SEARCH_STORE, seed=9)
+    out.update(cifar_search(torch, work, search))
+    shutil.rmtree(search)
+    out["input_kernel_launches"] = dict(tk.launch_counts)
+    out["seconds"] = time.time() - t0
+    print(f"CIFAR phase: {out['seconds']:.1f} s", flush=True)
+    check(sum(tk.launch_counts.values()) == 0,
+          f"the CIFAR path launched {tk.launch_counts}")
+    return out
+
+
 # the least time of the input kernels at (20,8,256,256,3): each uint8 byte
 # read once and each output written once at 3.35 TB/s (their 2 operations
 # per element at 67 TFLOP/s f32 take ~1 us: bytes bound them)
@@ -2090,6 +2621,8 @@ def main():
         avmnist = avmnist_phase(torch, tk, work)
         torch.cuda.empty_cache()
         mmimdb = mmimdb_phase(torch, tk, work)
+        torch.cuda.empty_cache()
+        cifar = cifar_phase(torch, tk, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2104,10 +2637,12 @@ def main():
     print(json.dumps({"search": search, "nvidia_smi": smi}))
     print(json.dumps({"avmnist": avmnist, "nvidia_smi": smi}))
     print(json.dumps({"mmimdb": mmimdb, "nvidia_smi": smi}))
+    print(json.dumps({"cifar": cifar, "nvidia_smi": smi}))
     src = "mfas_tpu_torch/csrc/input_kernels.cu"
     # launches: K1's on its two main paths (streamed training, one per
     # train, dev and test batch; the default search, s1), K2's on the
-    # resident training run; the AV-MNIST and MM-IMDB paths launch neither.
+    # resident training run; the AV-MNIST, MM-IMDB and CIFAR paths launch
+    # neither.
     # No single PyTorch call computes either kernel's function, so
     # library_ms is null (gather + K1 stands beside K2 in the kernel_times
     # line)
@@ -2115,7 +2650,8 @@ def main():
                                 for k in ("u8_normalize",
                                           "u8_gather_normalize")}
               for name, phase_out in (("avmnist", avmnist),
-                                      ("mmimdb", mmimdb))}
+                                      ("mmimdb", mmimdb),
+                                      ("cifar", cifar))}
     k1_paths = {"found_training_packed_f32": train["b_packed_f32"]["launches"],
                 "search_default_s1": search["s1_default"]["k1_launches"],
                 **{k: v["u8_normalize"] for k, v in others.items()}}

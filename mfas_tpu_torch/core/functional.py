@@ -37,6 +37,19 @@ def max_pool2d(x, kernel_size, stride=None, padding=0):
     return TF.max_pool2d(x, kernel_size, stride=stride, padding=padding)
 
 
+def avg_pool2d(x, kernel_size, stride=None, padding=0,
+               count_include_pad=True):
+    """Zero padding; ``count_include_pad=False`` divides each window by its
+    count of unpadded elements (the JAX package's second reduce_window)."""
+    return TF.avg_pool2d(x, kernel_size, stride=stride, padding=padding,
+                         count_include_pad=count_include_pad)
+
+
+def adaptive_avg_pool2d_1x1(x):
+    """AdaptiveAvgPool2d((1,1)) on (N,C,H,W)."""
+    return x.mean(dim=(2, 3), keepdim=True)
+
+
 def global_avg_pool2d(x):
     """Reference GlobalPooling2D (models/auxiliary/aux_models.py:54-64):
     mean over everything after the channel dim; identity on (N,C)."""

@@ -176,27 +176,36 @@ class Sigmoid(nn.Module):
         return torch.sigmoid(x)
 
 
-class _DropoutBase(nn.Module):
-    """Train-mode dropout draws its mask from ``self.generator``, a
+class StochasticLayer(nn.Module):
+    """A layer whose train-mode forward draws from ``self.generator``, a
     ``torch.Generator`` on the activations' device that the training engine
-    hands to every dropout layer of its model (``set_dropout_generator``).
-    A train-mode forward without one raises: no mask ever comes from
-    torch's global RNG."""
+    hands to every such layer of its model (``set_dropout_generator``).
+    A train-mode draw without one raises: nothing ever comes from torch's
+    global RNG."""
+
+    def __init__(self):
+        super().__init__()
+        self.generator = None
+
+    def _train_generator(self):
+        if self.generator is None:
+            raise RuntimeError(
+                f"{type(self).__name__} in train mode has no generator: "
+                "call core.layers.set_dropout_generator(model, generator)")
+        return self.generator
+
+
+class _DropoutBase(StochasticLayer):
     _fn = None
 
     def __init__(self, p=0.5):
         super().__init__()
         self.p = float(p)
-        self.generator = None
 
     def forward(self, x):
         if not self.training:
             return x
-        if self.generator is None:
-            raise RuntimeError(
-                f"{type(self).__name__} in train mode has no generator: "
-                "call core.layers.set_dropout_generator(model, generator)")
-        return type(self)._fn(x, self.p, self.generator)
+        return type(self)._fn(x, self.p, self._train_generator())
 
 
 class Dropout(_DropoutBase):
@@ -208,9 +217,10 @@ class Dropout2d(_DropoutBase):
 
 
 def set_dropout_generator(model, generator):
-    """Point every dropout layer of ``model`` at ``generator``."""
+    """Point every dropout layer (every StochasticLayer) of ``model`` at
+    ``generator``."""
     for m in model.modules():
-        if isinstance(m, _DropoutBase):
+        if isinstance(m, StochasticLayer):
             m.generator = generator
 
 
@@ -229,6 +239,24 @@ class MaxPool2d(nn.Module):
 
     def forward(self, x):
         return F.max_pool2d(x, self.kernel_size, self.stride, self.padding)
+
+
+class AvgPool2d(nn.Module):
+    def __init__(self, kernel_size, stride=None, padding=0,
+                 count_include_pad=True):
+        super().__init__()
+        self.kernel_size, self.stride, self.padding = (kernel_size, stride,
+                                                       padding)
+        self.count_include_pad = count_include_pad
+
+    def forward(self, x):
+        return F.avg_pool2d(x, self.kernel_size, self.stride, self.padding,
+                            self.count_include_pad)
+
+
+class Identity(nn.Module):
+    def forward(self, x):
+        return x
 
 
 # --------------------------------------------------------------------------

@@ -9,8 +9,9 @@ train_searchable/ntu.py:14-89):
     argmax of the summed logits (:60-61);
   * corrects are ``_mask``-weighted, so the padded rows of a ragged last
     batch never count, and accuracy divides by the dataset size;
-  * the best-dev state is kept (strict ``>`` over a start of 0.0, so a
-    0.0 dev epoch never snapshots) and restored at the end (:82-88).
+  * the best-dev state is kept (strict ``>`` over a start of
+    ``initial_best_acc``: 0.0, so a 0.0 dev epoch never snapshots, except
+    in the CIFAR engine) and restored at the end (:82-88).
 
 A train step is forward, (multitask) CE, backward and a torch Adam step
 with coupled weight decay WEIGHT_DECAY (core/optim.py); the trainable set is a
@@ -109,7 +110,7 @@ class TrainRecord:
 class ClassifierEngine:
     def __init__(self, model, device, multitask=False,
                  input_keys=("image", "audio"), batch_prep=None,
-                 compute_dtype=None, remat=False):
+                 compute_dtype=None, remat=False, initial_best_acc=0.0):
         self.model = model
         self.device = torch.device(device)
         self.multitask = multitask
@@ -118,6 +119,7 @@ class ClassifierEngine:
         # input kernels for packed and resident NTU batches)
         self.batch_prep = batch_prep
         self.compute_dtype = compute_dtype
+        self.initial_best_acc = initial_best_acc
         self.generator = torch.Generator(device=self.device)
         set_dropout_generator(model, self.generator)
         if remat:
@@ -158,12 +160,19 @@ class ClassifierEngine:
         corrects = ((preds == label).to(w.dtype) * w).sum()
         return loss, corrects, out
 
+    def make_optimizer(self):
+        """A fresh Adam over the model's trainable parameters."""
+        return make_adam(self.model.parameters(), WEIGHT_DECAY)
+
+    def _optimizer_step(self, optimizer):
+        optimizer.step()
+
     def _train_step(self, batch, optimizer, eta):
         loss, corrects, _ = self._forward(batch)
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
         set_lr(optimizer, eta)
-        optimizer.step()
+        self._optimizer_step(optimizer)
         return loss.detach(), corrects.detach()
 
     def _prefetched(self, loader):
@@ -182,16 +191,16 @@ class ClassifierEngine:
         """Train the parameters under ``trainable_prefixes`` (all when
         None) with a fresh Adam. Returns (best_dev_acc, best_state) and
         leaves the model in ``best_state``, which is the initial state when
-        no dev epoch beat 0.0. Dropout draws from ``seed`` at epoch 0 and
-        from ``seed + epoch`` after, as the JAX engine's ``Rng(seed)`` and
-        its resume at ``Rng(seed + start_epoch)``. With ``state_path`` the
-        whole training state is written after every epoch, and
-        ``resume=True`` continues from it when the file exists. The call's
-        TrainRecord is appended to ``self.train_records``."""
+        no dev epoch beat ``initial_best_acc``. Dropout draws from ``seed``
+        at epoch 0 and from ``seed + epoch`` after, as the JAX engine's
+        ``Rng(seed)`` and its resume at ``Rng(seed + start_epoch)``. With
+        ``state_path`` the whole training state is written after every
+        epoch, and ``resume=True`` continues from it when the file exists.
+        The call's TrainRecord is appended to ``self.train_records``."""
         model = self.model
         set_trainable(model, trainable_prefixes)
-        optimizer = make_adam(model.parameters(), WEIGHT_DECAY)
-        best_acc = 0.0
+        optimizer = self.make_optimizer()
+        best_acc = self.initial_best_acc
         best_state = snapshot(model)
         start_epoch = 0
         if resume and state_path and os.path.exists(state_path):

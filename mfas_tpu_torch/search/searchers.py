@@ -1,5 +1,5 @@
-"""The NTU and AV-MNIST searchers (port of mfas_tpu/search/searchers.py:
-NTUSearcher, AVMNISTSearcher): wire the data, the backbones and the
+"""The NTU, AV-MNIST and CIFAR searchers (port of
+mfas_tpu/search/searchers.py): wire the data, the backbones and the
 candidate trainer into the EPNAS loop (or, for AV-MNIST with
 ``--randsearch``, the random search).
 
@@ -8,7 +8,9 @@ Candidates train as populations (search/population.py) unless
 ``--population_weightsharing`` trains them one at a time too. NTU's input is
 the packed store's trainexp/dev splits, streamed as raw uint8 clips that
 kernel K1 normalizes on the device; AV-MNIST's is float32 arrays in host
-memory, split into train and dev rows.
+memory, split into train and dev rows. CIFAR has no backbone: each
+candidate is a whole micro-cell net trained on its own
+(``CifarSearchTrainer``).
 """
 
 from __future__ import annotations
@@ -20,14 +22,18 @@ import torch
 
 from mfas_tpu_torch.data import ntu as ntu_data
 from mfas_tpu_torch.data.avmnist import load_avmnist_arrays, train_dev_split
+from mfas_tpu_torch.data.cifar import (CifarLoader, load_cifar10_arrays,
+                                       train_split)
 from mfas_tpu_torch.data.loader import ArrayLoader, MapLoader
 from mfas_tpu_torch.fusion import avmnist as f_avmnist
+from mfas_tpu_torch.fusion import cifar as f_cifar
 from mfas_tpu_torch.fusion import ntu as f_ntu
 from mfas_tpu_torch.runtime import checkpoint as ckpt
 from mfas_tpu_torch.search.population import PopulationSpec
 from mfas_tpu_torch.search.searcher import ModelSearcher
 from mfas_tpu_torch.search.surrogate import SimpleRecurrentSurrogate
-from mfas_tpu_torch.search.trainers import (PopulationSearchTrainer,
+from mfas_tpu_torch.search.trainers import (CifarSearchTrainer,
+                                            PopulationSearchTrainer,
                                             SequentialSearchTrainer)
 
 # the extractor's initial weights (--random_backbones), as the JAX
@@ -186,3 +192,34 @@ class AVMNISTSearcher(ModelSearcher):
                                     self.device)
         return self._epnas(model_type, {"model": self.surrogate},
                            self.dataloaders, methods, self.device)
+
+
+class CifarSearcher(ModelSearcher):
+    """CIFAR-10 train[0:45000] for search training, train[45000:50000] as
+    dev (the last n//10 rows of a smaller store), the 4-feature surrogate,
+    whole-net candidates (reference models/searchable.py:270-317). Both
+    loaders take the TRAIN transforms, as the reference builds both from
+    the train-transform dataset (:294-297)."""
+
+    def __init__(self, args, *, device, jsonl_log=None, timer=None):
+        super().__init__(args, jsonl_log=jsonl_log, timer=timer)
+        self.device = torch.device(device)
+        arrays = load_cifar10_arrays(args.data_dir, train=True)
+        split, hi = train_split(arrays["image"].shape[0])
+        self.dataloaders = {
+            "train": CifarLoader(arrays, args.batchsize, train=True, seed=0,
+                                 indices=np.arange(0, split)),
+            "dev": CifarLoader(arrays, args.batchsize, train=True, seed=1,
+                               indices=np.arange(split, hi)),
+        }
+        self.train_fn = CifarSearchTrainer(device=self.device, timer=timer)
+        self.surrogate = SimpleRecurrentSurrogate(100, 4, 100,
+                                                  device=self.device)
+
+    def search(self):
+        methods = {"train_sampled_fun": self.train_fn,
+                   "get_layer_confs":
+                       f_cifar.get_possible_layer_configurations}
+        return self._epnas(f_cifar.Searchable_MicroCNN,
+                           {"model": self.surrogate}, self.dataloaders,
+                           methods, self.device)

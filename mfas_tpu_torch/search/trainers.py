@@ -1,5 +1,5 @@
 """Candidate trainers: the ``train_sampled_fun`` implementations handed to
-the searcher (port of mfas_tpu/search/trainers.py, NTU part).
+the searcher (port of mfas_tpu/search/trainers.py).
 
   * ``PopulationSearchTrainer`` (default): all K candidates train together
     in one batched step over frozen-backbone features (search/population.py).
@@ -7,10 +7,15 @@ the searcher (port of mfas_tpu/search/trainers.py, NTU part).
     ``Searchable_Skeleton_Image_Net`` with the searcher's backbone weights,
     trained through ``engine/classifier.py::ClassifierEngine`` on its central
     weights; the weight-sharing path.
+  * ``CifarSearchTrainer``: CIFAR's whole-net candidates, one at a time,
+    through ``engine/cifar.py::CifarEngine``; under ``--weightsharing`` op
+    weights pass between candidates by op type (``get_cifar_states``).
 
-Shared weights are stored as nested dicts of numpy arrays keyed
-'{i}.L_{in}_{out}.A_{act}' -> {"0": {weight, bias}, "2": {BatchNorm}}, the
-layout of the JAX package and of ``population.extract_shared_states``.
+Shared weights are stored as nested dicts of numpy arrays, the layout of
+the JAX package (and of ``population.extract_shared_states``), keyed
+'{i}.L_{in}_{out}.A_{act}' -> {"0": {weight, bias}, "2": {BatchNorm}} for
+the fusion layers, 'op{1,2}.{type}.block{b}.cell{c}', 'input_conv',
+'classifier' and 'aux_classifier' for CIFAR's nets.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ import numpy as np
 import torch
 
 from mfas_tpu_torch.core.sched import LRCosineAnnealingScheduler
+from mfas_tpu_torch.engine.cifar import CifarEngine
 # TRAIN_SEED_OFFSET, the offset between a candidate's init seed and its
 # dropout seed, lives with the engine that seeds dropout
 from mfas_tpu_torch.engine.classifier import (TRAIN_SEED_OFFSET,
@@ -28,6 +34,20 @@ from mfas_tpu_torch.engine.classifier import (TRAIN_SEED_OFFSET,
 from mfas_tpu_torch.fusion.layers import shared_weight_key
 from mfas_tpu_torch.runtime.checkpoint import flatten_tree, nest_tree
 from mfas_tpu_torch.search.population import PopulationTrainer
+
+
+def _numpy_tree(module):
+    """``module``'s state as a nested tree of numpy arrays."""
+    return nest_tree({k: v.detach().cpu().numpy().copy()
+                      for k, v in module.state_dict().items()})
+
+
+def _load_numpy_tree(module, tree):
+    """Load a nested tree of arrays (``_numpy_tree``'s layout, or the JAX
+    package's) into ``module`` with strict keys."""
+    module.load_state_dict({k: torch.as_tensor(np.array(v))
+                            for k, v in flatten_tree(tree).items()},
+                           strict=True)
 
 
 def _layer_key(model, idx):
@@ -43,9 +63,7 @@ def get_central_states(model, state_dict, verbose=True):
         if verbose:
             print(("Updating" if name in state_dict else "Creating")
                   + " shared weight with ID: {}".format(name))
-        state_dict[name] = nest_tree(
-            {k: v.detach().cpu().numpy().copy()
-             for k, v in model.fusion_layers[idx].state_dict().items()})
+        state_dict[name] = _numpy_tree(model.fusion_layers[idx])
     return state_dict
 
 
@@ -54,11 +72,7 @@ def set_central_states(model, state_dict, verbose=True):
     for idx in range(len(model.fusion_layers)):
         name = _layer_key(model, idx)
         if name in state_dict:
-            layer = model.fusion_layers[idx]
-            layer.load_state_dict(
-                {k: torch.as_tensor(np.asarray(v))
-                 for k, v in flatten_tree(state_dict[name]).items()},
-                strict=True)
+            _load_numpy_tree(model.fusion_layers[idx], state_dict[name])
             if verbose:
                 print("Loaded shared weight with ID: {}".format(name))
 
@@ -179,4 +193,96 @@ class PopulationSearchTrainer:
             num_epochs=args.epochs, input_keys=self.input_keys,
             seed=self._seed, verbose=args.verbose, shared_state_dict=shared)
         self.candidates_trained += len(sampled_configurations)
+        return accs
+
+
+# --------------------------------------------------------------------------
+# CIFAR: whole-net candidates (reference models/search/cifar_searchable.py:
+# 21-114)
+# --------------------------------------------------------------------------
+def _cifar_parts(model):
+    """(store key, submodule) of every part the CIFAR store shares: each
+    block's two ops under 'op{1,2}.{type}.block{b}.cell{c}', then
+    input_conv, classifier and the aux head under 'aux_classifier' (the
+    attribute the reference's get_states meant; its model calls it
+    aux_head)."""
+    parts = []
+    for c, cell in enumerate(model.cell_array):
+        for b, block in enumerate(cell.blocks):
+            parts.append((f"op1.{block.op1_type}.block{b}.cell{c}",
+                          block.op1))
+            parts.append((f"op2.{block.op2_type}.block{b}.cell{c}",
+                          block.op2))
+    return parts + [("input_conv", model.input_conv),
+                    ("classifier", model.classifier),
+                    ("aux_classifier", model.aux_head)]
+
+
+def get_cifar_states(model):
+    """A fresh store of ``model``'s shared parts, nested numpy trees in the
+    JAX layout. The reference's get_states rebinds its store to a new dict
+    (cifar_searchable.py:83-85), so the caller REPLACES its store with this
+    one: it holds only the last candidate's keys."""
+    return {key: _numpy_tree(m) for key, m in _cifar_parts(model)}
+
+
+def set_cifar_states(model, state_dict):
+    """Load every stored part whose key ``model`` has."""
+    for key, m in _cifar_parts(model):
+        if key in state_dict:
+            _load_numpy_tree(m, state_dict[key])
+
+
+class CifarSearchTrainer:
+    """Whole-network training of one candidate at a time (no frozen
+    backbone, so the population trainer does not apply): a fresh
+    ``Searchable_MicroCNN`` per conf, initial weights from the seed counter
+    (+1 per candidate; a search state keeps it), trained by ``CifarEngine``
+    with dropout and DropPath at ``seed + TRAIN_SEED_OFFSET``."""
+
+    def __init__(self, *, device, timer=None):
+        self.device = torch.device(device)
+        self._seed = 0
+        self.timer = timer
+        self.candidates_trained = 0
+
+    def build_model(self, searchable_type, args, configuration):
+        """The candidate at the current seed."""
+        return searchable_type(
+            args, configuration, device=self.device,
+            generator=torch.Generator().manual_seed(self._seed))
+
+    def __call__(self, sampled_configurations, searchable_type, dataloaders,
+                 args, device=None, state_dict=None):
+        state_dict = {} if state_dict is None else state_dict
+        sizes = {k: dl.dataset_size for k, dl in dataloaders.items()}
+        nbpe = sizes["train"] / args.batchsize
+
+        accs = []
+        for configuration in sampled_configurations:
+            self._seed += 1
+            model = self.build_model(searchable_type, args, configuration)
+            if args.weightsharing:
+                set_cifar_states(model, state_dict)
+            if args.verbose:
+                print("Now training: ")
+                print(configuration)
+
+            engine = CifarEngine(model, self.device)
+            scheduler = LRCosineAnnealingScheduler(
+                args.eta_max, args.eta_min, args.Ti, args.Tm, nbpe)
+            with (self.timer.section("whole-net candidates")
+                  if self.timer is not None else contextlib.nullcontext()):
+                best_acc, _ = engine.train_track_acc(
+                    None, dataloaders, sizes, scheduler,
+                    num_epochs=args.epochs,
+                    seed=self._seed + TRAIN_SEED_OFFSET,
+                    print_loss=args.verbose)
+            # train_track_acc leaves the model in its best-dev state
+            if args.weightsharing:
+                new_states = get_cifar_states(model)
+                state_dict.clear()
+                state_dict.update(new_states)
+            accs.append(float(best_acc))
+            self.candidates_trained += 1
         return accs

@@ -40,15 +40,20 @@ import jax.numpy as jnp
 from mfas_tpu.core import Ctx, Rng, flatten_tree, unflatten_tree
 from mfas_tpu.core import functional as JF
 from mfas_tpu.core import layers as JL
-from mfas_tpu.core.module import apply_updates
+from mfas_tpu.core.module import apply_updates, merge
 from mfas_tpu.core.rnn import GRU as JGRU
 from mfas_tpu.data import mm_imdb as jdata
+from mfas_tpu.engine.classifier import split_tree
+from mfas_tpu.engine.mmimdb import MMIMDBEngine as JEngine
 from mfas_tpu.models import mm_imdb as jm
 from mfas_tpu.models import vgg as jvgg
 from mfas_tpu_torch.core import functional as TF
 from mfas_tpu_torch.core import layers as TL
+from mfas_tpu_torch.core.optim import make_adam
 from mfas_tpu_torch.core.rnn import GRU
 from mfas_tpu_torch.data import mm_imdb as tdata
+from mfas_tpu_torch.engine.classifier import set_trainable
+from mfas_tpu_torch.engine.mmimdb import MMIMDBEngine
 from mfas_tpu_torch.models import mm_imdb as tm
 from mfas_tpu_torch.models import vgg as tvgg
 from mfas_tpu_torch.runtime.checkpoint import state_dict_from_numpy
@@ -433,3 +438,106 @@ def test_loader_batches_equal_jax(stores, average_text):
             assert t.shape[1] in (8, 16, 32) and t.shape[1] >= n.max()
             assert (t[0, n[0]:] == -10.0).all()
             assert (t[0, :n[0]] != -10.0).all()
+
+
+# --------------------------------------------------------------------------
+# one whole-net train step of the other nets, float64
+# --------------------------------------------------------------------------
+# (net, args, --text_first_hidden, init seed): SimpleVT_CentralNet's
+# central conv1ds have 3 weights each; seed 0 draws conv2's all negative
+# over conv1's nonnegative ReLU output, which leaves every gradient below
+# the classifier's zero, so it runs from seed 5 (all six positive)
+TRAIN_NETS = [
+    ("VGGVTNet", {}, 256, 0),
+    ("VGGT_CentralNet", {}, 256, 0),
+    ("SimpleVT_CentralNet", dict(channels=4, fusingmix="13,25"), 192, 5),
+    ("VGGT_CentralNet", dict(fusingmix="11,24", fusetype="wsum"), 128, 0),
+]
+
+
+# on 32x32 posters VGG-19's last block runs on 2x2 maps, max-pooled to the
+# gp4 tap ahead of train-mode BatchNorms: its conv biases' gradients vanish
+# (as conv 34's does in the V2 step, test_torch_found_mmimdb.py)
+VGG_LAST_BLOCK_BIASES = {f"image_net.vgg.{i}.bias" for i in (28, 30, 32, 34)}
+
+
+@pytest.mark.parametrize("name, kw, tfh, seed", TRAIN_NETS,
+                         ids=[f"{n}-{k.get('fusetype', 'cat')}"
+                              for n, k, _, _ in TRAIN_NETS])
+def test_net_train_step_matches_jax_f64(name, kw, tfh, seed):
+    """One whole-net train step (text-net dropout 0) on 4 posters in
+    float64: the loss within 1e-12 relative, every gradient within 1e-9 of
+    its tensor's max, the same dead parameters (no gradient in torch,
+    exactly 0 in JAX) and the same BatchNorm statistics. A tensor whose
+    gradient vanishes analytically (below 1e-12 of the step's largest in
+    JAX: rounding noise) is named and must vanish in the port too."""
+    args = _args(**kw)
+    jnet = getattr(jm, name)(args, tfh, 3)
+    flat = {k: np.asarray(v)
+            for k, v in flatten_tree(jnet.init(seed)).items()}
+    tnet = _port(getattr(tm, name)(args, tfh, 3, device="cpu",
+                                   generator=GEN().manual_seed(0)), flat)
+    _no_dropout(jnet, tnet)
+    rs = np.random.RandomState(4)
+    batch = {"text": _text(4).astype(np.float64),
+             "image": _posters(4).astype(np.float64),
+             "label": (rs.rand(4, 23) > 0.7).astype(np.float64),
+             "_mask": np.array([1.0, 1.0, 1.0, 0.0])}
+    jax.config.update("jax_enable_x64", True)
+    try:
+        jeng = JEngine(jnet)
+        trainable, frozen = split_tree(jnet, unflatten_tree({
+            k: jnp.asarray(v.astype(np.float64) if v.dtype == np.float32
+                           else v) for k, v in flat.items()}))
+        jb = {k: jnp.asarray(v) for k, v in batch.items()}
+
+        def loss_fn(tr):
+            ctx = Ctx(train=True, rng=Rng(0))
+            per = JF.weighted_bce_elements(
+                jeng._forward(merge(tr, frozen), ctx, jb), jb["label"], 2.0)
+            loss = jnp.sum(jnp.mean(per, axis=1) * jb["_mask"]) \
+                / jnp.maximum(jnp.sum(jb["_mask"]), 1.0)
+            return loss, ctx.updates
+
+        (jloss, updates), jgrads = jax.jit(jax.value_and_grad(
+            loss_fn, has_aux=True))(trainable)
+        jloss = float(jloss)
+        jgrads = {k: np.asarray(v) for k, v in flatten_tree(jgrads).items()
+                  if v is not None}
+        jafter = {k: np.asarray(v) for k, v in flatten_tree(apply_updates(
+            merge(trainable, frozen), updates)).items()}
+    finally:
+        jax.config.update("jax_enable_x64", False)
+
+    tnet = tnet.double()
+    eng = MMIMDBEngine(tnet, "cpu")
+    set_trainable(tnet, None)
+    tnet.train()
+    opt = make_adam(tnet.parameters(), 1e-4)
+    tloss = eng._train_step({k: torch.from_numpy(v) for k, v in
+                             batch.items()}, opt, 1e-3)
+    tgrads = {n: p.grad.numpy() for n, p in tnet.named_parameters()
+              if p.grad is not None}
+    np.testing.assert_allclose(float(tloss), jloss, rtol=1e-12)
+    dead = set(jgrads) - set(tgrads)
+    assert all(not jgrads[k].any() for k in dead)
+    assert set(tgrads) <= set(jgrads) and "text_net.op1.lin.weight" in tgrads
+    largest = max(np.abs(g).max() for g in jgrads.values())
+    vanishing = {k for k in tgrads
+                 if np.abs(jgrads[k]).max() < 1e-12 * largest}
+    assert vanishing == (VGG_LAST_BLOCK_BIASES if "VGG" in name else set())
+    for k in vanishing:
+        assert np.abs(tgrads[k]).max() < 1e-12 * largest, k
+    for k in set(tgrads) - vanishing:
+        _close(tgrads[k], jgrads[k], (0, 1e-9), k)
+    tafter = {k: v.numpy() for k, v in tnet.state_dict().items()}
+    moved = 0
+    for k, v in tafter.items():
+        if k.endswith(("running_mean", "running_var")):
+            layer = k.rsplit(".", 1)[0]
+            scale = max(np.abs(jafter[f"{layer}.{s}"]).max()
+                        for s in ("running_mean", "running_var"))
+            np.testing.assert_allclose(v, jafter[k], rtol=0,
+                                       atol=1e-9 * scale, err_msg=k)
+            moved += not np.array_equal(v, flat[k])
+    assert moved

@@ -55,5 +55,11 @@ def test_port_imports_neither_jax_nor_mfas_tpu():
                  "mfas_tpu_torch.models.mm_imdb",
                  "mfas_tpu_torch.data.mm_imdb",
                  "mfas_tpu_torch.engine.mmimdb",
-                 "mfas_tpu_torch.main_found_mmimdb"):
+                 "mfas_tpu_torch.main_found_mmimdb",
+                 "mfas_tpu_torch.models.enas_cell",
+                 "mfas_tpu_torch.fusion.cifar",
+                 "mfas_tpu_torch.engine.cifar",
+                 "mfas_tpu_torch.data.cifar",
+                 "mfas_tpu_torch.main_searchable_cifar",
+                 "mfas_tpu_torch.main_found_cifar"):
         assert name in res["modules"]
