@@ -102,19 +102,42 @@
    loader's batch apart; (c5) the search- and fixed-mode nets card against
    CPU in f32 (1e-4 of max), a fixed-mode step in f64 (1e-3 of max, the
    parameters without a gradient as built), DropPath's kept share; (c3) a
-   cut EPNAS search through ``mfas_tpu_torch.main_searchable_cifar`` (80 +
-   4 whole-net candidates on 2,304 / 256 images), its state resumed after
+   cut EPNAS search through ``mfas_tpu_torch.main_searchable_cifar`` (24
+   of the 80 one-block rows + 4 whole-net candidates on 2,304 / 256
+   images), its state resumed after
    the first step to the uninterrupted run's confs and accuracies; (c4) a
    --weightsharing step whose store holds the last candidate's keys only.
-   Neither input kernel may launch on this path.
+   Neither input kernel may launch on this path;
+15. NTU's default input paths and the serving loop (phase (i), on the
+   stores the script already writes): (i1) the native host IO library
+   (mfas_tpu_torch/data/native.py, g++ at first use) loaded, not its numpy
+   fallback; its C++ skeleton parser against the numpy one on 40 files of
+   300 frames and 2 persons, and gather_normalize_u8 at (20,24,256,256,3)
+   against numpy within 1e-6, host clips/s of each; (i2) ``main_found_ntu
+   --test_cp`` of the slice's checkpoint on the packed store normalized on
+   the host (--no-multitask: Model Acc of the fused head), its fused logits
+   within 1e-4 of their max of the K1 run's, 0 K1 launches; (i3) found
+   training on it, one epoch per phase, train clips/s beside (b)'s; (i4)
+   the NTU search at the CLI's defaults on (s1)'s store normalized on the
+   host: 197 candidates, 0 K1 launches, the top-5; (i5) the raw-AVI
+   --datadir, which without cv2 must stop in load_video naming cv2 and
+   pack_ntu; (i6) for each vertical, ``mfas_tpu_torch.tools.export_model
+   --polymorphic_batch --check`` of its found checkpoint (NTU (i2)'s, AV-
+   MNIST (v1)'s, MM-IMDB (m1)'s, CIFAR (c1)'s) and ``mfas_tpu_torch.tools.
+   predict`` over its test split (NTU's 50 clips, a ragged last batch):
+   the printed top-1 (MM-IMDB: samples-F1) equal to the found CLI's test
+   pass of the same checkpoint and output, the logits within 1e-4 of their
+   max of that pass's, no input kernel launched; for NTU also --bf16: under
+   0.75 of the f32 artifact's size, within 0.05 of max |logit| of it.
+   Export seconds, artifact bytes and predict samples/s are printed.
 
 mfas_tpu_torch/scripts/archive_smoke.sh runs this script from a git archive
 of the tree and alone in an empty directory.
 
 TF32 is off throughout. Any failed check exits non-zero. Before the last
 lines come {"slice": ...}, {"training": ...}, {"search": ...},
-{"avmnist": ...}, {"mmimdb": ...} and {"cifar": ...} with the measured
-numbers; then {"kernels": [...]} with
+{"avmnist": ...}, {"mmimdb": ...}, {"cifar": ...} and {"serving": ...}
+with the measured numbers; then {"kernels": [...]} with
 each kernel's launches on the main paths, time, plain version's time and
 bound; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero.
@@ -893,7 +916,8 @@ def _search_run(torch, tk, seen, name, argv, want_k1, want_dtype,
              for _, a in entries]
     check(counts == {"u8_normalize": want_k1, "u8_gather_normalize": 0},
           f"{name}: launches {counts}, want {want_k1} of u8_normalize")
-    check(seen == {("u8_normalize", want_dtype): want_k1},
+    check(seen == ({("u8_normalize", want_dtype): want_k1} if want_k1
+                   else {}),
           f"{name}: kernel outputs {seen}, want {want_k1} x {want_dtype}")
     check(run.candidates == want_candidates,
           f"{name}: {run.candidates} candidates trained, want "
@@ -1637,7 +1661,17 @@ def avmnist_phase(torch, tk, work):
     out = {}
     found = write_avmnist_store(torch, os.path.join(work, "avmnist"),
                                 *AV_FOUND_STORE, seed=5)
-    out["v1_found"] = avmnist_found(torch, work, found)
+    out["v1_found"] = v1 = avmnist_found(torch, work, found)
+    from mfas_tpu_torch import main_found_avmnist as fmain
+    # --no-multitask: Model Acc of the fused head, the served output
+    out["i6_serving"] = serve(
+        torch, tk, "AV-MNIST", work,
+        ["avmnist", "--conf", "0", "--test_cp", v1["checkpoint"],
+         "--checkpointdir", work],
+        ["--datadir", found, "--batchsize", "128"],
+        *found_eval(fmain.main, ["--datadir", found, "--checkpointdir", work,
+                                 *AV_FOUND_ARGV, "--no-multitask",
+                                 "--test_cp", v1["checkpoint"]]))
     out["warm_phase2"] = avmnist_warm_steps(torch, work, found)
     shutil.rmtree(found)
     search = write_avmnist_store(torch, os.path.join(work, "avmnist_search"),
@@ -2049,6 +2083,16 @@ def mmimdb_phase(torch, tk, work):
     tk.reset_launch_counts()
     store = write_mmimdb_store(torch, os.path.join(work, "mmimdb"), seed=7)
     out = mmimdb_found(torch, work, store)
+    from mfas_tpu_torch import main_found_mmimdb as mmain
+    cp = os.path.basename(out["m1_default"]["saved"])
+    out["i6_serving"] = serve(
+        torch, tk, "MM-IMDB", work,
+        ["mmimdb", "--text_first_hidden", "256", "--test_cp", cp,
+         "--checkpointdir", work],
+        ["--datadir", store, "--len_data", str(MM_SPLITS["test"]),
+         "--batchsize", "64"],
+        *found_eval(mmain.main, ["--datadir", store, "--checkpointdir", work,
+                                 *MM_ARGV, "--test_cp", cp]))
     out["m3_warm"] = mmimdb_warm_steps(torch, work, store)
     out["m5_card_vs_cpu"] = mmimdb_card_vs_cpu(torch, store)
     shutil.rmtree(store)
@@ -2067,6 +2111,9 @@ CIFAR_SEARCH_ARGV = ["--epochs", "1", "--search_iterations", "1",
                      "--max_fusions", "2", "--num_samples", "4",
                      "--no-verbose", "--seed", str(SEED)]
 CIFAR_WS_ROWS = 4           # (c4): the first step cut to this many rows
+# (c3): the first step's block rows cut to the first 24 of the 80, so the
+# script keeps near its time with phase (i) added
+CIFAR_SEARCH_ROWS = 24
 CIFAR_WARM = (3, 20, 5)     # warm train steps: untimed, timed, profiled
 CIFAR_STEP_IMAGES = 16      # (c5) the f64 step's batch
 CIFAR_DROPPATH_DRAWS = 2000
@@ -2228,9 +2275,10 @@ def cifar_warm_steps(torch, work, store):
 def cifar_search(torch, work, store):
     """(c3) the EPNAS search at --planes 36 and the default --net_str
     (search mode: cells sum their blocks, no plane doubling), B=128, cut to
-    --epochs 1 --search_iterations 1 --max_fusions 2 --num_samples 4: the
-    80 one-block confs, then 4 sampled two-block confs, each a whole net
-    trained on 2,304 images and ranked on 256. Its state is copied after
+    --epochs 1 --search_iterations 1 --max_fusions 2 --num_samples 4 and
+    to the first CIFAR_SEARCH_ROWS of the 80 one-block rows: those
+    one-block confs, then 4 sampled two-block confs, each a whole net trained on
+    2,304 images and ranked on 256. Its state is copied after
     the first step and resumed from that copy: the resume line, 4
     candidates, the uninterrupted run's confs, and its accuracies within
     one dev image (cuDNN's deterministic algorithms are on for both runs).
@@ -2259,17 +2307,22 @@ def cifar_search(torch, work, store):
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     tsearcher.ModelSearcher._save_state = save
+    layer_confs = f_cifar.get_possible_layer_configurations
+    cut = layer_confs(0)[:CIFAR_SEARCH_ROWS]
+    f_cifar.get_possible_layer_configurations = (
+        lambda i: cut if i == 0 else layer_confs(i))
     try:
         out["c3_search"], full, _ = _cli_search(
-            torch, smain, "c3 search", base + ["--search_state", state], 84)
-    finally:
+            torch, smain, "c3 search", base + ["--search_state", state],
+            CIFAR_SEARCH_ROWS + 4)
         tsearcher.ModelSearcher._save_state = orig
-    try:
         resume = [a for a in base if a != "--no-verbose"] + [
             "--search_state", first_state, "--resume_search"]
         out["c3_resumed"], resumed, text = _cli_search(
             torch, smain, "c3 resumed", resume, 4)
     finally:
+        tsearcher.ModelSearcher._save_state = orig
+        f_cifar.get_possible_layer_configurations = layer_confs
         torch.backends.cudnn.deterministic = deterministic
     check(out["c3_search"]["first_step_distinct"] > 1,
           "c3: the first step's accuracies are all equal")
@@ -2291,8 +2344,7 @@ def cifar_search(torch, work, store):
           f"{diff} from the uninterrupted run's")
 
     phase("CIFAR (c4) a sequential --weightsharing step")
-    rows = f_cifar.get_possible_layer_configurations(0)[:CIFAR_WS_ROWS]
-    layer_confs = f_cifar.get_possible_layer_configurations
+    rows = layer_confs(0)[:CIFAR_WS_ROWS]
     ws_state = os.path.join(work, "cifar_ws.pkl")
     f_cifar.get_possible_layer_configurations = lambda i: rows
     try:
@@ -2534,6 +2586,28 @@ def cifar_card_vs_cpu(torch, store):
     return out
 
 
+def cifar_test_eval(torch, store, path, want_acc):
+    """The found CIFAR CLI's test pass (main_found_cifar has no --test_cp)
+    of the (c1) checkpoint: its accuracy, which must be (c1)'s Model Acc,
+    and the logits of its valid rows."""
+    from mfas_tpu_torch import main_found_cifar as cmain
+    from mfas_tpu_torch.data.cifar import CifarLoader, load_cifar10_arrays
+    from mfas_tpu_torch.engine.cifar import CifarEngine
+    from mfas_tpu_torch.engine.classifier import valid_rows
+    from mfas_tpu_torch.runtime.checkpoint import load_state_dict
+
+    args = cmain.parse_args(["--data_dir", store])
+    model = cmain.build_model(args, cmain.parse_conf(args.conf), "cuda")
+    model.load_state_dict(load_state_dict(path), strict=True)
+    engine = CifarEngine(model, "cuda")
+    test = CifarLoader(load_cifar10_arrays(store, train=False),
+                       args.batchsize)
+    acc = engine.test_track_acc(test, test.dataset_size)
+    check(acc == want_acc, f"CIFAR checkpoint's test accuracy {acc}, (c1)'s "
+          f"Model Acc {want_acc}")
+    return acc, valid_rows(engine.last_eval)
+
+
 def cifar_phase(torch, tk, work):
     """(c1)-(c5); the input kernels launch nowhere on this path."""
     tk.reset_launch_counts()
@@ -2541,6 +2615,14 @@ def cifar_phase(torch, tk, work):
     found = write_cifar_store(torch, os.path.join(work, "cifar"),
                               *CIFAR_FOUND_STORE, seed=8)
     out = {"c1_found": cifar_found(torch, work, found)}
+    cp = out["c1_found"]["checkpoint"]
+    out["i6_serving"] = serve(
+        torch, tk, "CIFAR", work,
+        ["cifar", "--net_str", "1", "1", "2", "1", "1", "2", "1", "1",
+         "--test_cp", cp, "--checkpointdir", work],
+        ["--datadir", found, "--batchsize", "128"],
+        *cifar_test_eval(torch, found, os.path.join(work, cp),
+                         out["c1_found"]["model_acc"]))
     out["c2_warm"] = cifar_warm_steps(torch, work, found)
     out["c5_card_vs_cpu"] = cifar_card_vs_cpu(torch, found)
     shutil.rmtree(found)
@@ -2554,6 +2636,348 @@ def cifar_phase(torch, tk, work):
     check(sum(tk.launch_counts.values()) == 0,
           f"the CIFAR path launched {tk.launch_counts}")
     return out
+
+
+# --------------------------------------------------------------------------
+# (i) NTU's default input paths and the export -> predict serving loop
+# --------------------------------------------------------------------------
+NATIVE_SKELETONS = (40, 300, 2)     # (i1): files, frames, persons
+NATIVE_GATHER = (20, 24)            # (i1): clips gathered, stored frames
+
+
+def write_skeletons(root, n, frames, persons, seed):
+    """n .skeleton files in the NTU text layout, random joints."""
+    import numpy as np
+
+    os.makedirs(root)
+    rs = np.random.RandomState(seed)
+    paths = []
+    for i in range(n):
+        vals = rs.randn(frames, persons, 25, 3).astype(np.float32)
+        lines = [str(frames)]
+        for t in range(frames):
+            lines.append(str(persons))
+            for p in range(persons):
+                lines += ["72057594037931101 0 1 1 1 1 0 0.2 0.1 2", "25"]
+                lines += [f"{x:.6f} {y:.6f} {z:.6f} 0 0 0 0 0 0 0 0 2"
+                          for x, y, z in vals[t, p]]
+        path = os.path.join(root, f"S001C001P{i + 1:03d}R001A001.skeleton")
+        with open(path, "w") as f:
+            f.write("\n".join(lines) + "\n")
+        paths.append(path)
+    return paths
+
+
+def native_io(torch, work, packed):
+    """(i1) the host IO library (data/native.py): built and loaded (not the
+    numpy fallback); the C++ skeleton parser against the numpy one on
+    NATIVE_SKELETONS files (rtol 1e-5, atol 1e-6) and the threaded
+    gather_normalize_u8 at (20,24,256,256,3) from the packed train store
+    against numpy (1e-6), with host clips/s of each."""
+    import numpy as np
+
+    from mfas_tpu_torch.data import native
+    from mfas_tpu_torch.data.ntu import IMAGENET_MEAN, IMAGENET_STD
+
+    phase("(i1) native host IO")
+    t0 = time.time()
+    lib = native.get_lib()
+    check(lib is not None, "the native mfas_io library did not load: the "
+          "numpy fallback would run")
+    print(f"native library {native.library_path().name} built/loaded in "
+          f"{time.time() - t0:.2f} s")
+    n, frames, persons = NATIVE_SKELETONS
+    paths = write_skeletons(os.path.join(work, "skeletons"), n, frames,
+                            persons, seed=10)
+    t0 = time.time()
+    cpp = [native.parse_skeleton(p, frames) for p in paths]
+    t_cpp = time.time() - t0
+    t0 = time.time()
+    ref = [native.parse_skeleton_numpy(p, frames) for p in paths]
+    t_np = time.time() - t0
+    err = 0.0
+    for (a, na), (b, nb) in zip(cpp, ref):
+        check(na == nb == frames, f"parsed {na} / {nb} frames of {frames}")
+        check(np.allclose(a, b, rtol=1e-5, atol=1e-6),
+              "C++ and numpy skeleton parsers disagree")
+        err = max(err, float(np.abs(a - b).max()))
+    shutil.rmtree(os.path.join(work, "skeletons"))
+
+    store = np.load(os.path.join(packed, "train", "rgb.npy"), mmap_mode="r")
+    B, T = NATIVE_GATHER
+    check(store.shape[1] == T, f"store of {store.shape[1]} frames")
+    idx = np.random.RandomState(11).randint(0, len(store), B)
+    base = np.ascontiguousarray(store)
+    t0 = time.time()
+    got = native.gather_normalize_u8(base, idx, IMAGENET_MEAN, IMAGENET_STD)
+    t_gather = time.time() - t0
+    t0 = time.time()
+    want = native.gather_normalize_u8_numpy(base, idx, IMAGENET_MEAN,
+                                            IMAGENET_STD)
+    t_gather_np = time.time() - t0
+    gerr = float(np.abs(got - want).max())
+    check(got.shape == (B, T, 256, 256, 3) and gerr <= 1e-6,
+          f"gather_normalize_u8 {got.shape}: max abs err {gerr}")
+    r = {"library": native.library_path().name,
+         "skeleton_files": n, "skeleton_frames": frames,
+         "skeleton_max_abs_err": err,
+         "skeleton_files_per_s_cpp": n / t_cpp,
+         "skeleton_files_per_s_numpy": n / t_np,
+         "gather_shape": list(got.shape), "gather_max_abs_err": gerr,
+         "gather_clips_per_s_cpp": B / t_gather,
+         "gather_clips_per_s_numpy": B / t_gather_np,
+         "threads": os.cpu_count()}
+    print(f"i1: skeleton parse {r['skeleton_files_per_s_cpp']:.1f} files/s "
+          f"C++ against {r['skeleton_files_per_s_numpy']:.1f} numpy (max abs "
+          f"diff {err:.2e}); gather_normalize_u8 {tuple(got.shape)} "
+          f"{r['gather_clips_per_s_cpp']:.1f} clips/s C++ "
+          f"({os.cpu_count()} threads) against "
+          f"{r['gather_clips_per_s_numpy']:.1f} numpy (max abs diff "
+          f"{gerr:.2e})", flush=True)
+    return r
+
+
+def _eval_run(torch, tk, name, argv):
+    """One in-process ``main_found_ntu`` run with the launch counts zeroed
+    just before and read just after: Model Acc finite, no input kernel
+    launched (the host normalizes)."""
+    import numpy as np
+
+    from mfas_tpu_torch import main_found_ntu as tmain
+
+    torch.cuda.empty_cache()
+    tk.reset_launch_counts()
+    t0 = time.time()
+    run, out = _quiet(tmain.main, argv)
+    wall = time.time() - t0
+    counts = dict(tk.launch_counts)
+    check(sum(counts.values()) == 0, f"{name}: launches {counts}")
+    check(np.isfinite(run.acc) and f"Model Acc: {run.acc}" in out,
+          f"{name}: Model Acc {run.acc}")
+    return run, counts, wall
+
+
+def ntu_default_inputs(torch, tk, work, packed, runs, train):
+    """(i2) ``main_found_ntu --test_cp`` of the slice's checkpoint on the
+    packed store normalized on the host (no --device_input_normalize), with
+    --no-multitask so that Model Acc is the fused head's, the serving
+    surface that (i6) exports: the fused logits within 1e-4 of their max of
+    the K1 run's (slice_phase), Model Acc the top-1 of the K1 run's fused
+    logits, 0 K1 launches. (i3) found training on it, one epoch
+    per phase, f32: finite losses, train clips/s beside (b)'s. (i5) the
+    raw-AVI --datadir: without cv2 on this machine it must stop in
+    load_video with the RuntimeError that names cv2 and pack_ntu."""
+    import importlib.util
+
+    import numpy as np
+
+    from mfas_tpu_torch.engine.classifier import valid_rows
+
+    phase("(i2) found-NTU --test_cp, packed store normalized on the host")
+    argv = ["--checkpointdir", work, "--test_cp", "net.pt",
+            "--packed_datadir", packed, "--conf", "4", "--num_outputs", "60",
+            "--batchsize", "20", "--inner_representation_size", "128",
+            "--batchnorm", "--vid_len", "8", "32", "--no-multitask"]
+    run, counts, wall = _eval_run(torch, tk, "i2", argv)
+    logits = valid_rows(run.eval)
+    k1 = runs["packed"]["logits"]
+    diff = float(np.abs(logits - k1).max())
+    scale = float(np.abs(k1).max())
+    check(logits.shape == (50, 60) and diff <= 1e-4 * scale,
+          f"i2: fused logits {logits.shape} differ from the K1 run's by "
+          f"{diff} (max |logit| {scale})")
+    labels = np.load(os.path.join(packed, "test", "labels.npy"))
+    k1_top1 = float(np.sum(k1.argmax(axis=1) == labels)) / len(labels)
+    check(run.acc == k1_top1, f"i2: Model Acc {run.acc}, the top-1 of the "
+          f"K1 run's fused logits {k1_top1}")
+    i2 = {"model_acc": run.acc, "k1_launches": counts["u8_normalize"],
+          "eval_clips_per_s": run.eval.clips / run.eval.seconds,
+          "eval_clips_per_s_k1_warm": runs["packed"]["warm_clips_per_s"],
+          "run_seconds": wall, "max_abs_diff_vs_k1": diff,
+          "max_abs_logit": scale}
+    print(f"i2: Model Acc {run.acc} (fused head; the K1 run's fused top-1 "
+          f"{k1_top1}), "
+          f"launches {counts}, eval {i2['eval_clips_per_s']:.2f} clips/s "
+          f"(K1 path warm {i2['eval_clips_per_s_k1_warm']:.2f}), fused "
+          f"logits within {diff:.2e} of the K1 run's (max |logit| "
+          f"{scale:.3e})", flush=True)
+
+    phase("(i3) found-NTU training, packed store normalized on the host")
+    argv = ["--checkpointdir", work, "--packed_datadir", packed, *TRAIN_ARGV]
+    trun, counts, wall = _eval_run(torch, tk, "i3", argv)
+    stats = [e for r in trun.train for e in r.epochs]
+    check(len(trun.train) == 2 and all(np.isfinite(e["loss"])
+                                       for e in stats),
+          f"i3: {len(trun.train)} phases, epochs {stats}")
+    rates = [r.train_clips / r.train_seconds for r in trun.train]
+    b_rates = [p["train_clips_per_s"]
+               for p in train["b_packed_f32"]["phases"]]
+    i3 = {"model_acc": trun.acc, "k1_launches": counts["u8_normalize"],
+          "train_clips_per_s": rates, "train_clips_per_s_b_k1": b_rates,
+          "peak_bytes": trun.train_peak_bytes,
+          "losses": [e["loss"] for e in stats], "run_seconds": wall}
+    print(f"i3: phase 1 / 2 train clips/s {rates[0]:.2f} / {rates[1]:.2f} "
+          f"(K1 path (b): {b_rates[0]:.2f} / {b_rates[1]:.2f}); losses "
+          f"{[round(x, 4) for x in i3['losses']]}; launches {counts}; run "
+          f"{wall:.1f} s", flush=True)
+
+    phase("(i5) the raw-AVI --datadir")
+    raw = os.path.join(work, "raw")
+    name = "S001C001P003R001A001"          # subject 3: the test split
+    rgb_dir = os.path.join(raw, "nturgbd_rgb", "avi_256x256_30")
+    os.makedirs(rgb_dir)
+    avi = os.path.join(rgb_dir, name + "_rgb.avi")
+    has_cv2 = importlib.util.find_spec("cv2") is not None
+    if has_cv2:
+        import cv2
+        vw = cv2.VideoWriter(avi, cv2.VideoWriter_fourcc(*"MJPG"), 30,
+                             (256, 256))
+        for t in range(8):
+            vw.write(np.full((256, 256, 3), 30 * t, np.uint8))
+        vw.release()
+    else:
+        open(avi, "wb").close()     # never opened: load_video stops first
+    write_skeletons(os.path.join(raw, "nturgbd_skeletons"), 1, 8, 1, seed=12)
+    os.rename(os.path.join(raw, "nturgbd_skeletons",
+                           "S001C001P001R001A001.skeleton"),
+              os.path.join(raw, "nturgbd_skeletons", name + ".skeleton"))
+    argv = ["--checkpointdir", work, "--test_cp", "net.pt", "--datadir", raw,
+            "--conf", "4", "--num_outputs", "60", "--batchsize", "20",
+            "--inner_representation_size", "128", "--batchnorm",
+            "--vid_len", "8", "32", "--j", "1"]
+    if has_cv2:
+        run, counts, _ = _eval_run(torch, tk, "i5", argv)
+        i5 = {"cv2": True, "model_acc": run.acc}
+        print(f"i5: cv2 is installed here; --datadir decoded the fixture: "
+              f"Model Acc {run.acc}")
+    else:
+        from mfas_tpu_torch import main_found_ntu as tmain
+        try:
+            _quiet(tmain.main, argv)
+        except RuntimeError as e:
+            msg = str(e)
+        else:
+            msg = ""
+        check("cv2" in msg and "pack_ntu" in msg,
+              f"i5: --datadir without cv2 did not stop naming cv2 and "
+              f"pack_ntu ({msg!r})")
+        i5 = {"cv2": False, "error": msg}
+        print(f"i5: no cv2 here; --datadir stopped: {msg}")
+    shutil.rmtree(raw)
+    return {"i2_found_eval": i2, "i3_found_training": i3,
+            "i5_datadir": i5}, logits
+
+
+def ntu_search_host(torch, tk, work):
+    """(i4) the NTU search at the CLI's defaults on (s1)'s store normalized
+    on the host (no --device_input_normalize): 197 candidates, 0 K1
+    launches, the top-5, seconds and candidates/hour beside (s1)'s."""
+    phase("(i4) NTU search at the CLI's defaults, normalized on the host")
+    store = os.path.join(work, "search")
+    argv = ["--packed_datadir", store, "--checkpointdir", work,
+            *[a for a in SEARCH_ARGV if a != "--device_input_normalize"]]
+    seen, unwrap = _tally_out_dtypes(tk)
+    try:
+        r, _, _ = _search_run(torch, tk, seen, "i4 default search, host "
+                              "normalize", argv, 0, "torch.float32",
+                              32 + 11 * 15)
+    finally:
+        unwrap()
+    return r
+
+
+def found_eval(main, argv):
+    """A found CLI's ``--test_cp`` pass -> its Model Acc / F1 and the fused
+    logits of its valid rows."""
+    from mfas_tpu_torch.engine.classifier import valid_rows
+
+    run, _ = _quiet(main, argv)
+    check(not run.train, "a --test_cp run trained")
+    return run.acc, valid_rows(run.eval)
+
+
+def serve(torch, tk, name, work, export_argv, predict_argv, want,
+          want_logits, bf16=False):
+    """(i6) one vertical's serving loop on the card:
+    ``mfas_tpu_torch.tools.export_model`` of its found checkpoint with
+    --polymorphic_batch --check, then ``mfas_tpu_torch.tools.predict`` of
+    the artifact over its test split (launch counts zeroed just before and
+    read just after: none). The printed metric must equal ``want``, the
+    found CLI's --test_cp Model Acc / F1 of the same checkpoint from the
+    served (fused) output, and the logits lie within 1e-4 of their max of
+    ``want_logits``, that run's. With ``bf16`` also a --bf16 artifact: its size
+    against the f32 one's, and its logits on the first predict batch within
+    0.05 of max |logit| of the f32 artifact's."""
+    import numpy as np
+
+    from mfas_tpu_torch.runtime.export import load_exported
+    from mfas_tpu_torch.tools import export_model, predict
+
+    phase(f"(i6) {name}: export, check, predict")
+    vertical = export_argv[0]
+    art = os.path.join(work, f"{vertical}.pt2")
+    torch.cuda.empty_cache()
+    rec, out = _quiet(export_model.main, export_argv + [
+        "--polymorphic_batch", "--check", "--out", art])
+    check("check OK: reloaded artifact ran on cuda" in out,
+          f"{name}: export --check did not pass: {out[-300:]}")
+    # predict's own count, zeroed just before it; the phase's running count
+    # (checked at the phase's end) is put back after
+    before = dict(tk.launch_counts)
+    tk.reset_launch_counts()
+    res, _ = _quiet(predict.main, [vertical, "--artifact", art,
+                                   *predict_argv])
+    counts = dict(tk.launch_counts)
+    for k, v in before.items():
+        tk.launch_counts[k] += v
+    check(sum(counts.values()) == 0, f"{name}: predict launched {counts}")
+    logits = res["logits"]
+    check(np.isfinite(logits).all(), f"{name}: non-finite logits")
+    check(res["value"] == want, f"{name}: predict's {res['metric']} "
+          f"{res['value']}, the found run's {want}")
+    diff = float(np.abs(logits - want_logits).max())
+    scale = float(np.abs(want_logits).max())
+    check(logits.shape == want_logits.shape and diff <= 1e-4 * scale,
+          f"{name}: predict's logits {logits.shape} differ by {diff} (max "
+          f"|logit| {scale})")
+    r = {"export_seconds": rec["seconds"], "artifact_bytes": rec["bytes"],
+         "metric": res["metric"], "value": res["value"],
+         "samples": res["samples"],
+         "predict_samples_per_s": res["samples"] / res["seconds"],
+         "input_kernel_launches": counts, "max_abs_diff_vs_found": diff,
+         "max_abs_logit": scale}
+    print(f"{name}: exported in {rec['seconds']:.1f} s, {rec['bytes']} "
+          f"bytes; predict {res['samples']} samples at "
+          f"{r['predict_samples_per_s']:.1f} samples/s, {res['metric']} "
+          f"{res['value']} (the found run's {want}), logits within "
+          f"{diff:.2e} of its (max |logit| {scale:.3e})", flush=True)
+    if bf16:
+        art16 = art.replace(".pt2", "_bf16.pt2")
+        rec16, _ = _quiet(export_model.main, export_argv + [
+            "--polymorphic_batch", "--bf16", "--out", art16])
+        ratio = rec16["bytes"] / rec["bytes"]
+        loader = predict.LOADERS[vertical](predict.parse_args(
+            [vertical, "--artifact", art16, *predict_argv]))
+        batch = next(iter(loader))
+        inputs = [np.asarray(batch[k], np.float32)
+                  for k in predict.INPUT_KEYS[vertical]]
+        f32 = load_exported(art, "cuda").call(*inputs)
+        b16 = load_exported(art16, "cuda").call(*inputs)
+        check(b16.dtype == torch.float32, f"{name} bf16: {b16.dtype} out")
+        d16 = float((b16 - f32).abs().max())
+        s32 = float(f32.abs().max())
+        check(ratio < 0.75 and d16 <= 0.05 * s32 and d16 > 0,
+              f"{name} bf16: size ratio {ratio}, max abs diff {d16} "
+              f"(max |logit| {s32})")
+        r["bf16"] = {"artifact_bytes": rec16["bytes"], "size_ratio": ratio,
+                     "export_seconds": rec16["seconds"],
+                     "max_abs_diff_vs_f32": d16, "max_abs_logit": s32}
+        print(f"{name} --bf16: {rec16['bytes']} bytes ({ratio:.3f} of f32), "
+              f"first batch within {d16:.3e} of the f32 artifact (max "
+              f"|logit| {s32:.3e})", flush=True)
+        os.remove(art16)
+    os.remove(art)
+    return r
 
 
 # the least time of the input kernels at (20,8,256,256,3): each uint8 byte
@@ -2618,6 +3042,20 @@ def main():
         search = search_phase(torch, work, packed)
         search["card_vs_cpu"] = search_card_vs_cpu(torch, packed)
         torch.cuda.empty_cache()
+        serving = {"i1_native_io": native_io(torch, work, packed)}
+        ntu, i2_logits = ntu_default_inputs(torch, tk, work, packed, runs,
+                                            train)
+        serving.update(ntu)
+        serving["i4_search"] = ntu_search_host(torch, tk, work)
+        serving["i6_ntu"] = serve(
+            torch, tk, "NTU", work,
+            ["ntu", "--conf", "4", "--inner_representation_size", "128",
+             "--batchnorm", "--test_cp", "net.pt", "--checkpointdir", work],
+            ["--packed_datadir", packed, "--batchsize", "20",
+             "--vid_len", "8", "32"],
+            serving["i2_found_eval"]["model_acc"], want_logits=i2_logits,
+            bf16=True)
+        torch.cuda.empty_cache()
         avmnist = avmnist_phase(torch, tk, work)
         torch.cuda.empty_cache()
         mmimdb = mmimdb_phase(torch, tk, work)
@@ -2638,6 +3076,10 @@ def main():
     print(json.dumps({"avmnist": avmnist, "nvidia_smi": smi}))
     print(json.dumps({"mmimdb": mmimdb, "nvidia_smi": smi}))
     print(json.dumps({"cifar": cifar, "nvidia_smi": smi}))
+    for name, phase_out in (("avmnist", avmnist), ("mmimdb", mmimdb),
+                            ("cifar", cifar)):
+        serving[f"i6_{name}"] = phase_out["i6_serving"]
+    print(json.dumps({"serving": serving, "nvidia_smi": smi}))
     src = "mfas_tpu_torch/csrc/input_kernels.cu"
     # launches: K1's on its two main paths (streamed training, one per
     # train, dev and test batch; the default search, s1), K2's on the
@@ -2652,12 +3094,26 @@ def main():
               for name, phase_out in (("avmnist", avmnist),
                                       ("mmimdb", mmimdb),
                                       ("cifar", cifar))}
+    # the host-normalized NTU paths and every predict of phase (i) launch
+    # neither
+    host = {"found_eval_host_normalize_i2":
+            serving["i2_found_eval"]["k1_launches"],
+            "found_training_host_normalize_i3":
+            serving["i3_found_training"]["k1_launches"],
+            "search_host_normalize_i4": serving["i4_search"]["k1_launches"]}
+    predicts = {f"predict_{k[3:]}_i6": v["input_kernel_launches"]
+                for k, v in serving.items() if k.startswith("i6_")}
     k1_paths = {"found_training_packed_f32": train["b_packed_f32"]["launches"],
                 "search_default_s1": search["s1_default"]["k1_launches"],
-                **{k: v["u8_normalize"] for k, v in others.items()}}
+                **{k: v["u8_normalize"] for k, v in others.items()},
+                **host,
+                **{k: v["u8_normalize"] for k, v in predicts.items()}}
     k2_paths = {"found_training_resident_f32":
                 train["a_resident_f32"]["launches"],
-                **{k: v["u8_gather_normalize"] for k, v in others.items()}}
+                **{k: v["u8_gather_normalize"] for k, v in others.items()},
+                **{k: 0 for k in host},
+                **{k: v["u8_gather_normalize"]
+                   for k, v in predicts.items()}}
     bound = input_kernel_bound_ms(4)
     f32 = ms["f32"]
     # ms and plain_ms under the spin timer; both timers' readings beside

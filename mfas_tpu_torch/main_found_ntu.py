@@ -18,10 +18,13 @@ Adam), --remat (recompute activations in backward), --train_state F
 [--resume] (per-epoch resumable state; a resume skips phase 1),
 --save_checkpoint, --profile_dir D.
 
-The input comes from a packed store (subdirs train/dev/test), either
-streamed as raw uint8 clips normalized on the card
-(``--device_input_normalize``, kernel K1) or copied to the card once and
-gathered there (``--hbm_resident``, kernel K2).
+The input comes from the raw NTU layout under --datadir (AVIs decoded by
+cv2, skeletons parsed by the native C++ reader; the default), or from a
+packed store under --packed_datadir (subdirs train/dev/test, written by
+``python -m mfas_tpu_torch.tools.pack_ntu``): normalized on the host by the
+native reader (the default), streamed as raw uint8 clips normalized on the
+card (``--device_input_normalize``, kernel K1), or copied to the card once
+and gathered there (``--hbm_resident``, kernel K2).
 
 From the command line the device is CUDA and the run fails without it;
 ``main(argv, device="cpu")`` runs the same path on the CPU with the kernels'
@@ -37,9 +40,8 @@ import time
 
 import numpy as np
 
-from mfas_tpu_torch.runtime.cli import (MULTI_GPU, NATIVE_IO, add_dist_args,
-                                        cli_device, dist_requested,
-                                        reject_unported)
+from mfas_tpu_torch.runtime.cli import (MULTI_GPU, add_dist_args, cli_device,
+                                        dist_requested, reject_unported)
 
 
 def parse_args(argv=None):
@@ -159,16 +161,10 @@ INIT_SEED = 0
 
 def _reject_unported(args):
     """Stop on a flag whose feature the port does not have yet."""
-    packed_host_norm = (args.packed_datadir and not args.hbm_resident
-                        and not args.device_input_normalize)
     reject_unported([
         (args.use_dataparallel, "--use_dataparallel", MULTI_GPU),
         (dist_requested(args), "--dist_*", MULTI_GPU),
         (args.shard_resident_store, "--shard_resident_store", MULTI_GPU),
-        (not args.packed_datadir, "the raw-AVI --datadir input (no "
-         "--packed_datadir)", NATIVE_IO),
-        (packed_host_norm, "--packed_datadir normalized on the host (neither "
-         "--device_input_normalize nor --hbm_resident)", NATIVE_IO),
     ])
     if args.conv_channels_last:
         raise SystemExit("--conv_channels_last is a TPU convolution layout "
@@ -182,11 +178,11 @@ def get_dataloaders(args, device):
 
     tfm_val = d.Compose([d.NormalizeLen(args.vid_len)])
     tfm_tra = d.Compose([d.AugCrop(), d.NormalizeLen(args.vid_len)])
-    if not args.packed_datadir:
-        raise SystemExit(f"the raw-AVI --datadir input is not ported yet: "
-                         f"see {NATIVE_IO}")
 
     if args.hbm_resident:
+        if not args.packed_datadir:
+            raise SystemExit('--hbm_resident needs --packed_datadir (build '
+                             'one with mfas_tpu_torch.tools.pack_ntu)')
         from mfas_tpu_torch.data.resident import (ResidentLoader,
                                                   ResidentNTUStore)
         return {k: ResidentLoader(
@@ -196,13 +192,24 @@ def get_dataloaders(args, device):
             shuffle=(k == 'train'))
             for k in ('train', 'dev', 'test')}
 
-    from mfas_tpu_torch.data.ntu_pack import PackedNTU
-    datasets = {
-        k: PackedNTU(os.path.join(args.packed_datadir, k),
+    if args.packed_datadir:
+        from mfas_tpu_torch.data.ntu_pack import PackedNTU
+        datasets = {
+            k: PackedNTU(os.path.join(args.packed_datadir, k),
+                         transform=(tfm_tra if k == 'train' else tfm_val),
+                         args=args,
+                         device_normalize=args.device_input_normalize)
+            for k in ('train', 'dev', 'test')
+        }
+    else:
+        # vid_dim/vi_fr forwarded, as the JAX CLI does
+        datasets = {
+            k: d.NTU(args.datadir,
                      transform=(tfm_tra if k == 'train' else tfm_val),
-                     args=args, device_normalize=args.device_input_normalize)
-        for k in ('train', 'dev', 'test')
-    }
+                     stage=k, vid_dim=int(args.vid_dim),
+                     vid_fr=int(args.vi_fr), args=args)
+            for k in ('train', 'dev', 'test')
+        }
     return {k: MapLoader(v, args.batchsize, shuffle=(k == 'train'),
                          num_workers=args.num_workers)
             for k, v in datasets.items()}
@@ -221,7 +228,9 @@ def build_model(args, configuration, device):
 
 def make_engine(model, args, device):
     """The classifier engine with this run's batch prep (K1 or K2, in the
-    compute dtype), precision and remat."""
+    compute dtype), precision and remat. Host-normalized clips (raw AVI or
+    the packed store's default) are float32: the prep only casts them, and
+    K1 launches only on --device_input_normalize's uint8 clips."""
     import torch
 
     from mfas_tpu_torch.engine.classifier import ClassifierEngine
@@ -233,6 +242,10 @@ def make_engine(model, args, device):
                                         fuse_gather=True,
                                         compute_dtype=compute_dtype)
     else:
+        if args.device_input_normalize and not args.packed_datadir:
+            print('WARNING: --device_input_normalize needs --packed_datadir '
+                  '(mfas_tpu_torch.tools.pack_ntu) — ignored; this run '
+                  'normalizes on the host')
         from mfas_tpu_torch.data.ntu_pack import make_device_normalize_prep
         batch_prep = make_device_normalize_prep(compute_dtype)
     return ClassifierEngine(model, device, multitask=args.multitask,

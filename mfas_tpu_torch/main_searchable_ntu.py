@@ -14,8 +14,11 @@ the backbones in train mode, or once into a device bank with
 --cache_features (bf16 unless --f32_features; --int8_feature_bank);
 --sequential_candidates or --weightsharing train them one at a time.
 --search_state F [--resume_search] makes the search resumable after every
-step. The packed store needs the subdirs trainexp/ and dev/; its uint8
-clips are normalized on the card by kernel K1. The backbones come from
+step. The input is the raw NTU layout under --datadir (cv2 decode, native
+C++ skeleton reader; the default) or a packed store under --packed_datadir
+with the subdirs trainexp/ and dev/, normalized on the host by the native
+reader, or with --device_input_normalize streamed as uint8 clips that
+kernel K1 normalizes on the card. The backbones come from
 --ske_cp/--rgb_cp in --checkpointdir, or stay random with
 --random_backbones.
 
@@ -27,9 +30,8 @@ their ROADMAP.md item.
 
 import argparse
 
-from mfas_tpu_torch.runtime.cli import (MULTI_GPU, NATIVE_IO, add_dist_args,
-                                        cli_device, dist_requested,
-                                        reject_unported)
+from mfas_tpu_torch.runtime.cli import (MULTI_GPU, add_dist_args, cli_device,
+                                        dist_requested, reject_unported)
 
 
 def parse_args(argv=None):
@@ -181,10 +183,6 @@ def _reject_unported(args):
         (args.use_dataparallel, "--use_dataparallel", MULTI_GPU),
         (dist_requested(args), "--dist_*", MULTI_GPU),
         (args.shard_feature_bank, "--shard_feature_bank", MULTI_GPU),
-        (not args.packed_datadir, "the raw-AVI --datadir input (no "
-         "--packed_datadir)", NATIVE_IO),
-        (not args.device_input_normalize, "--packed_datadir normalized on "
-         "the host (no --device_input_normalize)", NATIVE_IO),
     ])
 
 

@@ -26,13 +26,25 @@ def strip_module_prefix(flat: dict) -> dict:
 
 def load_state_dict(path) -> dict:
     """A checkpoint as a flat {dotted.path: tensor} dict on the CPU; the
-    {'state_dict': {...}, ...} training-wrapper layout is unwrapped."""
+    {'state_dict': {...}, ...} training-wrapper layout is unwrapped. Python
+    scalars become 0-d tensors of numpy's dtype for them; any other
+    non-tensor entry (a nested dict, a string) is refused with a ValueError
+    naming it, as the JAX package's loader does."""
     obj = torch.load(path, map_location="cpu", weights_only=True)
     if not isinstance(obj, dict):
         raise ValueError("checkpoint does not contain a state_dict")
     if isinstance(obj.get("state_dict"), dict):
         obj = obj["state_dict"]
-    return strip_module_prefix(obj)
+    bad = [k for k, v in obj.items()
+           if not isinstance(v, (torch.Tensor, int, float, bool))]
+    if bad:
+        raise ValueError(
+            f"checkpoint entries are not tensors: {bad[:5]} — not a "
+            "state_dict (wrapper layouts other than 'state_dict' are not "
+            "auto-unwrapped)")
+    return strip_module_prefix({
+        str(k): v if isinstance(v, torch.Tensor)
+        else torch.from_numpy(np.asarray(v)) for k, v in obj.items()})
 
 
 def save(state_dict, path):

@@ -5,7 +5,6 @@ ported yet."""
 from __future__ import annotations
 
 MULTI_GPU = "ROADMAP.md §1 'Multi-GPU'"
-NATIVE_IO = "ROADMAP.md §1 'NTU raw-AVI and native IO path'"
 
 
 def cli_device(device, prog):

@@ -6,9 +6,10 @@ candidate trainer into the EPNAS loop (or, for AV-MNIST with
 Candidates train as populations (search/population.py) unless
 ``--sequential_candidates``; ``--weightsharing`` without
 ``--population_weightsharing`` trains them one at a time too. NTU's input is
-the packed store's trainexp/dev splits, streamed as raw uint8 clips that
-kernel K1 normalizes on the device; AV-MNIST's is float32 arrays in host
-memory, split into train and dev rows. CIFAR has no backbone: each
+the trainexp/dev splits of the raw layout (--datadir) or of a packed store,
+normalized on the host, or streamed from the packed store as raw uint8 clips
+that kernel K1 normalizes on the device (--device_input_normalize);
+AV-MNIST's is float32 arrays in host memory, split into train and dev rows. CIFAR has no backbone: each
 candidate is a whole micro-cell net trained on its own
 (``CifarSearchTrainer``).
 """
@@ -87,21 +88,33 @@ class NTUSearcher(ModelSearcher):
 
     def __init__(self, args, *, device, jsonl_log=None, timer=None):
         super().__init__(args, jsonl_log=jsonl_log, timer=timer)
-        from mfas_tpu_torch.data.ntu_pack import (
-            PackedNTU, make_device_normalize_inputs_prep,
-            make_device_normalize_prep)
-
         self.device = torch.device(device)
         tfm_val = ntu_data.Compose([ntu_data.NormalizeLen(args.vid_len)])
         tfm_tra = ntu_data.Compose([
             ntu_data.AugCrop(seed=0),
             ntu_data.NormalizeLen(args.vid_len)])
-        ds_train = PackedNTU(os.path.join(args.packed_datadir, "trainexp"),
-                             transform=tfm_tra, args=args,
-                             device_normalize=True)
-        ds_dev = PackedNTU(os.path.join(args.packed_datadir, "dev"),
-                           transform=tfm_val, args=args,
-                           device_normalize=True)
+
+        dev_norm = bool(args.device_input_normalize and args.packed_datadir)
+        if args.device_input_normalize and not dev_norm:
+            print("WARNING: --device_input_normalize needs --packed_datadir "
+                  "(mfas_tpu_torch.tools.pack_ntu) — ignored; this run "
+                  "normalizes on the host")
+        if args.packed_datadir:
+            from mfas_tpu_torch.data.ntu_pack import PackedNTU
+            ds_train = PackedNTU(
+                os.path.join(args.packed_datadir, "trainexp"),
+                transform=tfm_tra, args=args, device_normalize=dev_norm)
+            ds_dev = PackedNTU(os.path.join(args.packed_datadir, "dev"),
+                               transform=tfm_val, args=args,
+                               device_normalize=dev_norm)
+        else:
+            vd, vf = int(args.vid_dim), int(args.vi_fr)
+            ds_train = ntu_data.NTU(args.datadir, transform=tfm_tra,
+                                    stage="trainexp", vid_dim=vd, vid_fr=vf,
+                                    args=args)
+            ds_dev = ntu_data.NTU(args.datadir, transform=tfm_val,
+                                  stage="dev", vid_dim=vd, vid_fr=vf,
+                                  args=args)
         self.dataloaders = {
             "train": MapLoader(ds_train, args.batchsize, shuffle=True,
                                seed=0, num_workers=args.num_workers),
@@ -127,11 +140,19 @@ class NTUSearcher(ModelSearcher):
             drpt=args.drpt, use_alphas=args.alphas, multitask=args.multitask,
             feature_dtype=feature_dtype)
 
+        # host-normalized clips are float32 and go to the backbones as they
+        # are (the population trainer casts them to the feature dtype); K1
+        # runs only on the uint8 clips of --device_input_normalize
+        batch_prep = input_prep = None
+        if dev_norm:
+            from mfas_tpu_torch.data.ntu_pack import (
+                make_device_normalize_inputs_prep, make_device_normalize_prep)
+            batch_prep = make_device_normalize_prep()
+            input_prep = make_device_normalize_inputs_prep(
+                torch.bfloat16 if feature_dtype else None)
         self.train_fn = _candidate_trainer(
             args, spec, extractor, backbone_states, ("rgb", "ske"),
-            self.device, timer, batch_prep=make_device_normalize_prep(),
-            input_prep=make_device_normalize_inputs_prep(
-                torch.bfloat16 if feature_dtype else None))
+            self.device, timer, batch_prep=batch_prep, input_prep=input_prep)
         self.surrogate = SimpleRecurrentSurrogate(100, 3, 100,
                                                   device=self.device)
 

@@ -61,5 +61,14 @@ def test_port_imports_neither_jax_nor_mfas_tpu():
                  "mfas_tpu_torch.engine.cifar",
                  "mfas_tpu_torch.data.cifar",
                  "mfas_tpu_torch.main_searchable_cifar",
-                 "mfas_tpu_torch.main_found_cifar"):
+                 "mfas_tpu_torch.main_found_cifar",
+                 "mfas_tpu_torch.data.native",
+                 "mfas_tpu_torch.data.ntu",
+                 "mfas_tpu_torch.data.ntu_pack",
+                 "mfas_tpu_torch.runtime.checkpoint",
+                 "mfas_tpu_torch.runtime.export",
+                 "mfas_tpu_torch.tools",
+                 "mfas_tpu_torch.tools.pack_ntu",
+                 "mfas_tpu_torch.tools.export_model",
+                 "mfas_tpu_torch.tools.predict"):
         assert name in res["modules"]

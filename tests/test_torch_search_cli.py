@@ -16,6 +16,7 @@ small size:
 import json
 import shutil
 
+import numpy as np
 import pytest
 import torch
 
@@ -211,11 +212,25 @@ def test_cli_guards(root, extra, item, monkeypatch):
 @pytest.mark.parametrize("drop", ["--packed_datadir",
                                   "--device_input_normalize"])
 def test_cli_stops_without_packed_device_input(root, drop):
+    """Both other inputs are ported (tests/test_torch_ntu_raw_cli.py):
+    without --packed_datadir the CLI reads the raw layout under --datadir
+    (here the missing default data/NTU/), without --device_input_normalize
+    the packed store is normalized on the host and K1 has no place."""
+    from mfas_tpu_torch.search.searchers import NTUSearcher
+
     argv = argv_of(root)
     i = argv.index(drop)
     del argv[i:i + (2 if drop == "--packed_datadir" else 1)]
-    with pytest.raises(SystemExit, match="NTU raw-AVI and native IO path"):
-        tmain.main(argv, device="cpu")
+    if drop == "--packed_datadir":
+        with pytest.raises(FileNotFoundError, match="nturgbd_rgb"):
+            tmain.main(argv, device="cpu")
+        return
+    searcher = NTUSearcher(tmain.parse_args(argv), device="cpu")
+    for loader in searcher.dataloaders.values():
+        assert not loader.dataset.device_normalize
+    batch = next(iter(searcher.dataloaders["train"]))
+    assert batch["rgb"].dtype == np.float32
+    assert searcher.train_fn.trainer.input_prep is None
 
 
 def test_parser_defaults_are_the_reference_search():
