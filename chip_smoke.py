@@ -129,15 +129,30 @@
    pass of the same checkpoint and output, the logits within 1e-4 of their
    max of that pass's, no input kernel launched; for NTU also --bf16: under
    0.75 of the f32 artifact's size, within 0.05 of max |logit| of it.
-   Export seconds, artifact bytes and predict samples/s are printed.
+   Export seconds, artifact bytes and predict samples/s are printed;
+16. the operator tools (phase (t), tools_phase): (t1)
+   ``mfas_tpu_torch.tools.convert_torchvision`` as a subprocess on a
+   full-width torchvision-layout ResNet-50 from a seed, center and mean
+   inflation loaded strictly into ``inflated_resnet50`` on the card and
+   checked bit for bit, the center net's 2-frame 224x224 clip against the
+   single frame and against the CPU on every feature map (1e-4 of max),
+   and vgg19_trunk into the MM-IMDB trunk; (t2)
+   ``mfas_tpu_torch.tools.profile_step`` at its defaults (B=16, 256 px):
+   found_train in f32 and --bf16 and visual_fwd, each one's ms/iter, busy
+   ms/iter, kernels per iteration and classes; (t3)
+   ``mfas_tpu_torch.tools.parity_kit --synthetic`` [READY] (exit 0), and
+   [NOT READY] (exit 1) without checkpoints; (t4)
+   ``mfas_tpu_torch.tools.search_report`` over (s4)'s search state and
+   telemetry, listing the top-5 the search printed. Neither input kernel
+   may launch on these paths.
 
 mfas_tpu_torch/scripts/archive_smoke.sh runs this script from a git archive
 of the tree and alone in an empty directory.
 
 TF32 is off throughout. Any failed check exits non-zero. Before the last
 lines come {"slice": ...}, {"training": ...}, {"search": ...},
-{"avmnist": ...}, {"mmimdb": ...}, {"cifar": ...} and {"serving": ...}
-with the measured numbers; then {"kernels": [...]} with
+{"avmnist": ...}, {"mmimdb": ...}, {"cifar": ...}, {"serving": ...} and
+{"tools": ...} with the measured numbers; then {"kernels": [...]} with
 each kernel's launches on the main paths, time, plain version's time and
 bound; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero.
@@ -465,58 +480,6 @@ def _tally_out_dtypes(tk):
     return seen, lambda: [setattr(tk, n, fn) for n, fn in orig.items()]
 
 
-# kernel classes of a train step, by kernel name: the first class one of
-# whose substrings the name holds (cuDNN names its conv kernels fprop/dgrad/
-# wgrad or convolve*; torch's foreach Adam runs in multi_tensor_apply)
-KERNEL_CLASSES = (
-    ("input_K1_K2", ("u8_norm",)),
-    ("conv_wgrad", ("wgrad",)),
-    ("conv_dgrad", ("dgrad", "flip_filter")),
-    ("conv_fwd", ("fprop", "convolve")),
-    ("cudnn_layout", ("nchwToNhwc", "nhwcToNchw")),
-    ("pool", ("pool",)),
-    ("adam", ("multi_tensor_apply",)),
-    ("matmul", ("gemm", "nvjet", "cublas")),
-    ("reduce", ("reduce_kernel",)),
-    ("elementwise", ("elementwise", "copy_kernel")),
-)
-
-
-def kernel_class(name):
-    for cls, keys in KERNEL_CLASSES:
-        if any(k in name for k in keys):
-            return cls
-    return "other"
-
-
-def profile_summary(trace_path, steps=1):
-    """Device busy share, device time by kernel class and the largest
-    kernels of a torch.profiler chrome trace; times in ms per step."""
-    with open(trace_path) as f:
-        events = json.load(f)["traceEvents"]
-    ks = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
-                if e.get("cat") == "kernel" and "dur" in e)
-    if not ks:
-        return {"kernels": 0}
-    busy, end = 0.0, ks[0][0]
-    by_name, by_class = {}, {}
-    for a, b, name in ks:
-        busy += max(0.0, b - max(a, end))
-        end = max(end, b)
-        by_name[name] = by_name.get(name, 0.0) + (b - a)
-        c = kernel_class(name)
-        by_class[c] = by_class.get(c, 0.0) + (b - a)
-    span = end - ks[0][0]
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    per = 1e3 * steps       # trace times are µs
-    return {"kernels_per_step": len(ks) / steps,
-            "device_busy_ms": busy / per, "span_ms": span / per,
-            "busy_share": busy / span,
-            "by_class_ms": {c: t / per for c, t in sorted(
-                by_class.items(), key=lambda kv: -kv[1])},
-            "top_ms": [[n[:70], t / per] for n, t in top]}
-
-
 def traced(torch, work, name, fn, calls, steps=None):
     """profile_summary of ``calls`` calls of fn under torch.profiler (CPU
     and card activity), per ``steps`` steps (default: per call), with
@@ -524,6 +487,8 @@ def traced(torch, work, name, fn, calls, steps=None):
     hands the profiler no kernel record at all; such a trace is taken once
     more before the run fails."""
     from torch.profiler import ProfilerActivity, profile
+
+    from mfas_tpu_torch.runtime.profiler import profile_summary
 
     steps = steps or calls
     trace = os.path.join(work, f"{name}.json")
@@ -551,6 +516,7 @@ def training_phase(torch, work, packed):
     from mfas_tpu_torch import main_found_ntu as tmain
     from mfas_tpu_torch.ops import input_kernels as tk
     from mfas_tpu_torch.runtime.checkpoint import load_state_dict
+    from mfas_tpu_torch.runtime.profiler import profile_summary
 
     phase("found-NTU training, full width")
     state = os.path.join(work, "train_state.pt")
@@ -962,9 +928,10 @@ def search_phase(torch, work, packed):
          --num_samples 4 over the first SEARCH_WS_ROWS of the 32 one-layer
          rows (the step's closing sample draws 4 of them): candidates
          trained one at a time, K1 in each of their batches;
-    (s4) (s2) with --search_iterations 1 --search_state F, then
-         --search_iterations 2 --resume_search: the resume line, only
-         iteration 1's four populations (60 candidates), one bank rebuild.
+    (s4) (s2) with --search_iterations 1 --search_state F --jsonl_log L,
+         then --search_iterations 2 --resume_search: the resume line, only
+         iteration 1's four populations (60 candidates), one bank rebuild;
+         F, L and the printed top-5 are what (t4) reads back.
     """
     from mfas_tpu_torch.fusion import ntu as f_ntu
     from mfas_tpu_torch.ops import input_kernels as tk
@@ -978,6 +945,7 @@ def search_phase(torch, work, packed):
     tb, db = -(-n_train // bs), -(-n_dev // bs)
     pops = iters * fusions
     state = os.path.join(work, "search_state.pkl")
+    jsonl = os.path.join(work, "search_log.jsonl")
     f32, bf16 = "torch.float32", "torch.bfloat16"
     seen, unwrap = _tally_out_dtypes(tk)
     out = {}
@@ -1002,7 +970,7 @@ def search_phase(torch, work, packed):
         finally:
             f_ntu.get_possible_layer_configurations = layer_confs
         bank = base + ["--cache_features", "--batchnorm", "--search_state",
-                       state]
+                       state, "--jsonl_log", jsonl]
         out["s4_first"], _, _ = _search_run(
             torch, tk, seen, "s4 first run", bank + ["--search_iterations",
                                                       "1"],
@@ -1015,6 +983,12 @@ def search_phase(torch, work, packed):
         line = f"Resuming search after iteration 0 step {fusions - 1}"
         check(line in text, f"s4: no '{line}' in the resumed run's output")
         print(f"s4 resumed run printed: {line}")
+        # what (t4) reads back: the state, the telemetry of both runs and
+        # the CLI's printed top-5
+        out["s4_resume"]["listing"] = text.split(
+            "Now listing best architectures\n")[1].splitlines()
+        out["s4_files"] = {"search_state": state, "jsonl_log": jsonl,
+                           "epnas_steps": 2 * fusions}
     finally:
         unwrap()
     s1, s2 = out["s1_default"], out["s2_cache_features"]
@@ -1039,6 +1013,7 @@ def search_busy_share(torch, work, base):
     from torch.profiler import ProfilerActivity, profile
 
     from mfas_tpu_torch import main_searchable_ntu as smain
+    from mfas_tpu_torch.runtime.profiler import profile_summary
 
     phase("search: the card's busy share over (s1)'s first two steps")
     argv = base + ["--search_iterations", "1", "--max_fusions", "2"]
@@ -2980,6 +2955,303 @@ def serve(torch, tk, name, work, export_argv, predict_argv, want,
     return r
 
 
+# --------------------------------------------------------------------------
+# (t) the operator tools
+# --------------------------------------------------------------------------
+FRAME = 224         # (t1): the framewise check's frame size
+PROFILE_RUNS = (("found_train_f32", ["--what", "found_train"]),
+                ("found_train_bf16", ["--what", "found_train", "--bf16"]),
+                ("visual_fwd", ["--what", "visual_fwd"]))
+KIT_TINY = ["--resnet3d_layers", "1", "1", "1", "1", "--resnet3d_base_width",
+            "16", "--num_outputs", "3", "--inner_representation_size", "8",
+            "--no_batchnorm", "--vid_len", "2", "32"]
+
+
+def write_resnet50_2d(torch, path, seed):
+    """A torchvision-layout ResNet-50 state dict from a seed, written with
+    torch.save (zip): the inflated template's keys with the 3D convs' time
+    axis dropped (4D conv weights, He-scaled by fan-in), BatchNorm
+    parameters and statistics near the identity, int64
+    num_batches_tracked, and fc.*."""
+    from mfas_tpu_torch.models.resnet3d import inflated_resnet50
+
+    g = torch.Generator().manual_seed(seed)
+    flat = {}
+    for k, v in inflated_resnet50(
+            device="cpu", generator=torch.Generator().manual_seed(seed)
+    ).state_dict().items():
+        if v.dim() >= 4:
+            o, i, kh, kw = v.shape[0], v.shape[1], v.shape[-2], v.shape[-1]
+            flat[k] = torch.randn(o, i, kh, kw, generator=g) * (
+                2.0 / (i * kh * kw)) ** 0.5
+        elif k.endswith("num_batches_tracked"):
+            flat[k] = torch.tensor(100, dtype=torch.int64)
+        elif k.endswith("running_var"):
+            flat[k] = 1 + 0.1 * torch.rand(v.shape, generator=g)
+        elif k.endswith("weight"):
+            flat[k] = 1 + 0.1 * torch.randn(v.shape, generator=g)
+        else:
+            flat[k] = 0.1 * torch.randn(v.shape, generator=g)
+    flat["fc.weight"] = 0.01 * torch.randn(1000, 2048, generator=g)
+    flat["fc.bias"] = torch.zeros(1000)
+    torch.save(flat, path)
+    return flat
+
+
+def run_tool(root, module, argv):
+    """``python -m module argv`` from the checkout's root -> its standard
+    output; a non-zero exit fails the run."""
+    p = subprocess.run([sys.executable, "-m", module, *argv], cwd=root,
+                       capture_output=True, text=True, timeout=600)
+    check(p.returncode == 0, f"{module} {argv[0]}: exit {p.returncode}: "
+          f"{p.stderr[-800:]}")
+    return p.stdout
+
+
+def conversion(torch, work, root):
+    """(t1) ``mfas_tpu_torch.tools.convert_torchvision`` as a subprocess on
+    a full-width torchvision-layout ResNet-50 from a seed: in center and in
+    mean mode 318 tensors, loaded strictly into ``inflated_resnet50`` on the
+    card, every 3D conv's slices the 2D weight's inflation bit for bit,
+    every other tensor the 2D one's. Center mode, f32, TF32 off: a 2-frame
+    time-replicated FRAMExFRAME clip against the single frame on the card,
+    on each of the four feature maps, and the card's clip against the
+    CPU's, each within 1e-4 of the map's max. vgg19_trunk: a fabricated
+    torchvision VGG-19 (``features.*`` and ``classifier.6.*``) converts to
+    32 ``vgg.*`` tensors, which load strictly into the MM-IMDB model's trunk
+    and equal what ``main_found_mmimdb --vgg_cp``'s loader puts there from
+    the source file."""
+    from mfas_tpu_torch import main_found_mmimdb as mmain
+    from mfas_tpu_torch.models.resnet3d import inflated_resnet50
+    from mfas_tpu_torch.models.vgg import vgg19_features
+    from mfas_tpu_torch.runtime.checkpoint import load_state_dict
+
+    tool = "mfas_tpu_torch.tools.convert_torchvision"
+    phase("(t1) convert_torchvision resnet50_inflate, vgg19_trunk")
+    src = os.path.join(work, "resnet50_2d.pth")
+    flat = write_resnet50_2d(torch, src, seed=13)
+    out = {"src_bytes": os.path.getsize(src)}
+    inflated = {}
+    for mode in ("center", "mean"):
+        dst = os.path.join(work, f"resnet50_{mode}.pt")
+        t0 = time.time()
+        text = run_tool(root, tool, ["resnet50_inflate", "--src", src,
+                                     "--dst", dst, "--inflation", mode])
+        seconds = time.time() - t0
+        check(text == f"wrote 318 tensors to {dst}\n", f"{mode}: {text!r}")
+        sd = load_state_dict(dst)
+        net = inflated_resnet50(device="cuda",
+                                generator=torch.Generator().manual_seed(0))
+        net.load_state_dict(sd, strict=True)
+        check("fc.weight" not in sd and "fc.bias" not in sd, f"{mode}: fc.*")
+        n3d = 0
+        for k, w in sd.items():
+            w2d = flat[k]
+            if w.dim() != 5:
+                check(torch.equal(w, w2d), f"{mode}: {k} is not the 2D one")
+                continue
+            n3d += 1
+            kt = w.shape[2]
+            for t in range(kt):
+                want = (w2d / kt if mode == "mean" else w2d
+                        if t == kt // 2 else torch.zeros_like(w2d))
+                check(torch.equal(w[:, :, t], want),
+                      f"{mode}: {k}[:, :, {t}] is not the inflation")
+        out[mode] = {"seconds": seconds, "bytes": os.path.getsize(dst),
+                     "conv3d_weights": n3d}
+        print(f"t1 {mode}: converted in {seconds:.2f} s (a subprocess), "
+              f"{out[mode]['bytes']} bytes; loaded strictly on the card; "
+              f"{n3d} 3D conv weights inflated bit for bit", flush=True)
+        inflated[mode] = (net, sd)
+        os.remove(dst)
+    os.remove(src)
+
+    net, sd = inflated["center"]
+    net.eval()
+    cpu = inflated_resnet50(device="cpu",
+                            generator=torch.Generator().manual_seed(0))
+    cpu.load_state_dict(sd, strict=True)
+    cpu.eval()
+    frame = torch.randn(1, 3, 1, FRAME, FRAME,
+                        generator=torch.Generator().manual_seed(14))
+    clip = frame.repeat(1, 1, 2, 1, 1)
+    with torch.no_grad():
+        card_clip, card_frame = net(clip.cuda()), net(frame.cuda())
+        cpu_clip = cpu(clip)
+    maps = []
+    for i, (fc, fs, fh) in enumerate(zip(card_clip, card_frame, cpu_clip)):
+        scale = float(fh.abs().max())
+        e_frames = max(float((fc[:, :, t] - fs[:, :, 0]).abs().max())
+                       for t in range(2))
+        e_cpu = float((fc.cpu() - fh).abs().max())
+        check(fc.shape[2] == 2 and torch.isfinite(fc).all()
+              and e_frames <= 1e-4 * scale and e_cpu <= 1e-4 * scale,
+              f"t1 framewise fm{i + 1} {tuple(fc.shape)}: frames differ by "
+              f"{e_frames}, card and CPU by {e_cpu} (max {scale})")
+        maps.append({"shape": list(fc.shape), "max_abs": scale,
+                     "frames_max_abs_diff": e_frames,
+                     "card_vs_cpu_max_abs_diff": e_cpu})
+    out["framewise"] = maps
+    print("t1 framewise (center, f32, 2 frames of "
+          f"{FRAME}x{FRAME}): " + "; ".join(
+              f"fm{i + 1} {tuple(m['shape'])} frames within "
+              f"{m['frames_max_abs_diff']:.2e}, card vs CPU "
+              f"{m['card_vs_cpu_max_abs_diff']:.2e} of max "
+              f"{m['max_abs']:.3e}" for i, m in enumerate(maps)), flush=True)
+    del inflated, net, cpu, card_clip, card_frame, cpu_clip
+
+    vsrc = os.path.join(work, "vgg19.pth")
+    vdst = os.path.join(work, "vgg19_trunk.pt")
+    g = torch.Generator().manual_seed(15)
+    vflat = {f"features.{k}": v for k, v in vgg19_features(
+        device="cpu", generator=g).state_dict().items()}
+    vflat["classifier.6.weight"] = torch.randn(1000, 4096, generator=g)
+    vflat["classifier.6.bias"] = torch.randn(1000, generator=g)
+    torch.save(vflat, vsrc)
+    t0 = time.time()
+    text = run_tool(root, tool, ["vgg19_trunk", "--src", vsrc, "--dst",
+                                 vdst])
+    seconds = time.time() - t0
+    check(text == f"wrote 32 tensors to {vdst}\n", f"vgg19_trunk: {text!r}")
+    conv = load_state_dict(vdst)
+    args = mmain.parse_args(["--text_first_hidden", "256"])
+    a, b = (mmain.build_model(args, "cuda") for _ in range(2))
+    a.image_net.vgg.load_state_dict(
+        {k[len("vgg."):]: v for k, v in conv.items()}, strict=True)
+    mmain.load_vgg_trunk(b, vsrc)
+    want = b.image_net.vgg.state_dict()
+    check(all(torch.equal(v, want[k])
+              for k, v in a.image_net.vgg.state_dict().items()),
+          "vgg19_trunk: the converted trunk differs from --vgg_cp's")
+    out["vgg19_trunk"] = {"seconds": seconds, "tensors": len(conv),
+                          "bytes": os.path.getsize(vdst)}
+    print(f"t1 vgg19_trunk: converted in {seconds:.2f} s, {len(conv)} "
+          "tensors, loaded strictly into the MM-IMDB trunk on the card, "
+          "equal to --vgg_cp's", flush=True)
+    os.remove(vsrc)
+    os.remove(vdst)
+    return out
+
+
+def profile_runs(torch, tk):
+    """(t2) ``mfas_tpu_torch.tools.profile_step`` at its defaults (B=16,
+    256 px) in process: found_train in f32 and --bf16, visual_fwd; each
+    must see kernels, a device-busy time within its wall time, report TF32
+    off (as this script set it) and launch neither input kernel (counts
+    zeroed just before, read just after)."""
+    import numpy as np
+
+    from mfas_tpu_torch.tools import profile_step
+
+    out = {}
+    for name, argv in PROFILE_RUNS:
+        phase(f"(t2) profile_step {' '.join(argv)}")
+        torch.cuda.empty_cache()
+        tk.reset_launch_counts()
+        t0 = time.time()
+        r, text = _quiet(profile_step.main, argv)
+        seconds = time.time() - t0
+        counts = dict(tk.launch_counts)
+        print(text, end="", flush=True)
+        check(sum(counts.values()) == 0, f"t2 {name}: launches {counts}")
+        check(np.isfinite(r["wall_ms"]) and r["kernels_per_iter"] > 0
+              and 0 < r["busy_ms"] <= 1.01 * r["wall_ms"],
+              f"t2 {name}: wall {r['wall_ms']} busy {r['busy_ms']} ms, "
+              f"{r['kernels_per_iter']} kernels")
+        check(r["tf32"] == {"matmul": False, "cudnn": False},
+              f"t2 {name}: TF32 {r['tf32']}")
+        r.update(input_kernel_launches=counts, seconds=seconds)
+        out[name] = r
+        print(f"t2 {name}: {r['wall_ms']:.2f} ms/iter, device busy "
+              f"{r['busy_ms']:.2f} ({100 * r['busy_ms'] / r['wall_ms']:.0f} "
+              f"%), {r['kernels_per_iter']:.0f} kernels/iter; top classes "
+              + ", ".join(f"{c} {t:.2f}" for c, t in
+                          list(r["by_class_ms"].items())[:4])
+              + f"; {seconds:.1f} s", flush=True)
+    return out
+
+
+def kit_runs(work):
+    """(t3) ``mfas_tpu_torch.tools.parity_kit``: --synthetic is [READY] with
+    exit code 0; the same fixture with a checkpoint directory that holds
+    none is [NOT READY], [missing], exit code 1."""
+    from mfas_tpu_torch.tools import parity_kit
+
+    phase("(t3) parity_kit --synthetic, and without checkpoints")
+    syn = os.path.join(work, "kit")
+    t0 = time.time()
+    rc, text = _quiet(parity_kit.main, ["--synthetic", syn])
+    seconds = time.time() - t0
+    check(rc == 0 and "[READY] all preconditions pass" in text
+          and "python -m mfas_tpu_torch.main_found_ntu" in text,
+          f"t3 --synthetic: exit {rc}: {text[-600:]}")
+    empty = os.path.join(work, "kit_empty")
+    os.makedirs(empty)
+    rc2, text2 = _quiet(parity_kit.main, ["--datadir", syn, "--checkpointdir",
+                                          empty, *KIT_TINY])
+    check(rc2 == 1 and "[NOT READY]" in text2 and "[missing]" in text2,
+          f"t3 without checkpoints: exit {rc2}: {text2[-600:]}")
+    shutil.rmtree(syn)
+    shutil.rmtree(empty)
+    print(f"t3: --synthetic [READY], exit 0 in {seconds:.2f} s; without "
+          f"checkpoints [NOT READY] with {text2.count('[missing]')} "
+          "[missing], exit 1", flush=True)
+    return {"synthetic_rc": rc, "synthetic_seconds": seconds,
+            "no_checkpoints_rc": rc2,
+            "missing": text2.count("[missing]")}
+
+
+def report_run(search):
+    """(t4) ``mfas_tpu_torch.tools.search_report`` over (s4)'s search state
+    and telemetry: its listing is the top-5 the resumed search printed, and
+    it counts both runs' EPNAS steps."""
+    from mfas_tpu_torch.tools import search_report
+
+    phase("(t4) search_report over (s4)'s state and telemetry")
+    files = search["s4_files"]
+    _, text = _quiet(search_report.main, ["--search_state",
+                                          files["search_state"], "--jsonl",
+                                          files["jsonl_log"]])
+    print(text, end="", flush=True)
+    listing = text.split("Now listing best architectures\n")[1].split(
+        "telemetry:")[0].splitlines()
+    want = search["s4_resume"]["listing"]
+    check(listing == want and len(want) == 5,
+          f"t4: the report lists {listing}, the search printed {want}")
+    steps = f"  epnas_step: {files['epnas_steps']}\n"
+    check(steps in text, f"t4: no {steps!r} in the report")
+    print(f"t4: the report's top-5 is the search's; {steps.strip()}",
+          flush=True)
+    return {"listing": listing, "epnas_steps": files["epnas_steps"]}
+
+
+def tools_phase(torch, tk, work, root, search):
+    """(t1)-(t4); the input kernels launch nowhere on these paths."""
+    t0 = time.time()
+    launches = {k: 0 for k in tk.launch_counts}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] += v
+
+    tk.reset_launch_counts()
+    out = {"t1_conversion": conversion(torch, work, root)}
+    add(tk.launch_counts)
+    torch.cuda.empty_cache()
+    out["t2_profile_step"] = profile_runs(torch, tk)
+    for r in out["t2_profile_step"].values():
+        add(r["input_kernel_launches"])
+    tk.reset_launch_counts()
+    out["t3_parity_kit"] = kit_runs(work)
+    out["t4_search_report"] = report_run(search)
+    add(tk.launch_counts)
+    check(sum(launches.values()) == 0, f"the tools' paths launched {launches}")
+    out["input_kernel_launches"] = launches
+    out["seconds"] = time.time() - t0
+    print(f"tools phase: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 # the least time of the input kernels at (20,8,256,256,3): each uint8 byte
 # read once and each output written once at 3.35 TB/s (their 2 operations
 # per element at 67 TFLOP/s f32 take ~1 us: bytes bound them)
@@ -3061,6 +3333,8 @@ def main():
         mmimdb = mmimdb_phase(torch, tk, work)
         torch.cuda.empty_cache()
         cifar = cifar_phase(torch, tk, work)
+        torch.cuda.empty_cache()
+        tools = tools_phase(torch, tk, work, root, search)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -3080,11 +3354,12 @@ def main():
                             ("cifar", cifar)):
         serving[f"i6_{name}"] = phase_out["i6_serving"]
     print(json.dumps({"serving": serving, "nvidia_smi": smi}))
+    print(json.dumps({"tools": tools, "nvidia_smi": smi}))
     src = "mfas_tpu_torch/csrc/input_kernels.cu"
     # launches: K1's on its two main paths (streamed training, one per
     # train, dev and test batch; the default search, s1), K2's on the
-    # resident training run; the AV-MNIST, MM-IMDB and CIFAR paths launch
-    # neither.
+    # resident training run; the AV-MNIST, MM-IMDB and CIFAR paths and the
+    # operator tools' (t) launch neither.
     # No single PyTorch call computes either kernel's function, so
     # library_ms is null (gather + K1 stands beside K2 in the kernel_times
     # line)
@@ -3093,7 +3368,7 @@ def main():
                                           "u8_gather_normalize")}
               for name, phase_out in (("avmnist", avmnist),
                                       ("mmimdb", mmimdb),
-                                      ("cifar", cifar))}
+                                      ("cifar", cifar), ("tools", tools))}
     # the host-normalized NTU paths and every predict of phase (i) launch
     # neither
     host = {"found_eval_host_normalize_i2":

@@ -105,3 +105,11 @@ class ResNet3D(nn.Module):
         fm3 = self.layer3(fm2)
         fm4 = self.layer4(fm3)
         return fm1, fm2, fm3, fm4
+
+
+def inflated_resnet50(*, device, generator):
+    """ResNet-50's layout ([3,4,6,3] at width 64), the template that
+    ``models/inflate.py`` fills from torchvision's 2D weights: its
+    state_dict is torchvision resnet50's keys (``fc.*`` aside) with a time
+    axis on the 3D convs."""
+    return ResNet3D((3, 4, 6, 3), device=device, generator=generator)

@@ -1,2 +1,3 @@
-"""Command-line tools of the port: pack_ntu, export_model, predict
-(``python -m mfas_tpu_torch.tools.<name>``)."""
+"""Command-line tools of the port (``python -m mfas_tpu_torch.tools.<name>``):
+pack_ntu, export_model, predict, convert_torchvision, search_report,
+parity_kit, profile_step."""

@@ -70,5 +70,10 @@ def test_port_imports_neither_jax_nor_mfas_tpu():
                  "mfas_tpu_torch.tools",
                  "mfas_tpu_torch.tools.pack_ntu",
                  "mfas_tpu_torch.tools.export_model",
-                 "mfas_tpu_torch.tools.predict"):
+                 "mfas_tpu_torch.tools.predict",
+                 "mfas_tpu_torch.models.inflate",
+                 "mfas_tpu_torch.tools.convert_torchvision",
+                 "mfas_tpu_torch.tools.search_report",
+                 "mfas_tpu_torch.tools.parity_kit",
+                 "mfas_tpu_torch.tools.profile_step"):
         assert name in res["modules"]
