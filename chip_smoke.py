@@ -96,13 +96,13 @@
    on the card (uint8 noise plus a colour per class): (c1) the found net at
    the CLI's defaults (fixed mode, --planes 36 doubling to 144, 8 cells,
    B=128, --drop_path 0.1 --drop_prob 0.2) trained one epoch through
-   ``mfas_tpu_torch.main_found_cifar`` on 45,000 / 5,000 / 10,000 images
+   ``mfas_tpu_torch.main_found_cifar`` on 22,500 / 2,500 / 10,000 images
    with --use_intermediate --save_checkpoint (finite losses, Model Acc
    above 0.2); (c2) its warm train steps timed and profiled, and the
    loader's batch apart; (c5) the search- and fixed-mode nets card against
    CPU in f32 (1e-4 of max), a fixed-mode step in f64 (1e-3 of max, the
    parameters without a gradient as built), DropPath's kept share; (c3) a
-   cut EPNAS search through ``mfas_tpu_torch.main_searchable_cifar`` (24
+   cut EPNAS search through ``mfas_tpu_torch.main_searchable_cifar`` (12
    of the 80 one-block rows + 4 whole-net candidates on 2,304 / 256
    images), its state resumed after
    the first step to the uninterrupted run's confs and accuracies; (c4) a
@@ -144,15 +144,41 @@
    [NOT READY] (exit 1) without checkpoints; (t4)
    ``mfas_tpu_torch.tools.search_report`` over (s4)'s search state and
    telemetry, listing the top-5 the search printed. Neither input kernel
-   may launch on these paths.
+   may launch on these paths;
+17. multi-GPU data parallelism (phase (d), multi_gpu_phase; parallel/
+   mesh.py). The card's machine has one H100 and NCCL refuses two ranks on
+   one device, so: (d1) NCCL at world 1 through ``main_found_ntu``'s own
+   --dist_coordinator/--dist_num_processes/--dist_process_id: the slice's
+   --test_cp --hbm_resident with --use_dataparallel prints the plain run's
+   Model Acc and logits bitwise, and all_reduce_grads, the synced
+   BatchNorm (forward and backward) and gather_rows over the one-rank group
+   equal their no-group versions bitwise; then two gloo ranks time-sharing
+   the card (CUDA tensors staged through the host), each a subprocess: (d2)
+   one warm phase-2 step of the full-width net (conf 4, B=20, 10 rows and
+   one K2 launch per rank, --drpt 0) against the one-rank step, in float64
+   under --remat (loss and statistics within 1e-12, every gradient within
+   1e-9 of its tensor's max) and in float32 (loss and statistics within
+   1e-5, the gradients against float64 no worse than one rank's: the f32
+   step is ill-conditioned, rank_d2 says why), the ranks' parameters bitwise
+   equal after each;
+   (d3) ``main_found_ntu --use_dataparallel --hbm_resident
+   --shard_resident_store`` one epoch per phase: the same Model Acc on both
+   ranks, within 2 clips of 50 of (a)'s, K1 on each rank and K2 never, only
+   rank 0's --save_checkpoint, which loads strictly; (d4)
+   ``main_searchable_ntu --use_dataparallel --cache_features --batchnorm
+   --shard_feature_bank`` cut to one search iteration: the same results on
+   both ranks, first-step accuracies within 0.02 of (s4)'s first run's, and
+   a resume from rank 0's state that agrees; (d5) the CIFAR found net with
+   --drop_path 0.1, 3 steps at B=128: the ranks' parameters bitwise equal
+   after each. No rate of (d2)-(d5) is a scaling figure.
 
 mfas_tpu_torch/scripts/archive_smoke.sh runs this script from a git archive
 of the tree and alone in an empty directory.
 
 TF32 is off throughout. Any failed check exits non-zero. Before the last
 lines come {"slice": ...}, {"training": ...}, {"search": ...},
-{"avmnist": ...}, {"mmimdb": ...}, {"cifar": ...}, {"serving": ...} and
-{"tools": ...} with the measured numbers; then {"kernels": [...]} with
+{"avmnist": ...}, {"mmimdb": ...}, {"cifar": ...}, {"serving": ...},
+{"tools": ...} and {"multi_gpu": ...} with the measured numbers; then {"kernels": [...]} with
 each kernel's launches on the main paths, time, plain version's time and
 bound; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero.
@@ -182,8 +208,12 @@ def check(ok, msg):
         raise SmokeFailure(msg)
 
 
+_T0 = time.time()
+
+
 def phase(name):
-    print(f"== {name}", flush=True)
+    """Print the phase's name and the script's seconds so far."""
+    print(f"== {name} (at {time.time() - _T0:.0f} s)", flush=True)
 
 
 def nvidia_smi():
@@ -898,7 +928,10 @@ def _search_run(torch, tk, seen, name, argv, want_k1, want_dtype,
          "k1_out": want_dtype, "confs_scored": len(accs),
          "first_step_above_0": sum(a > 0 for a in first),
          "first_step_distinct": len(set(first)),
-         "top5": [[c.tolist(), float(a)] for c, a in run.top]}
+         "top5": [[c.tolist(), float(a)] for c, a in run.top],
+         # the first step's confs (one row each) and accuracies
+         "first_step": [[c, a] for L, entries in run.data.state()
+                        if L == 1 for c, a in entries]}
     print(f"{name}: {run.candidates} candidates in {run.seconds:.1f} s, "
           f"{r['candidates_per_hour']:.0f} candidates/hour; split (s) "
           + ", ".join(f"{k} {v:.2f}" for k, v in run.split.items())
@@ -2079,16 +2112,18 @@ def mmimdb_phase(torch, tk, work):
 
 # CIFAR: cifar-10-batches-py stores drawn on the card, the CLIs' defaults
 # otherwise (--planes 36, --net_str 1 1 2 1 1 2 1 1, B=128)
-CIFAR_FOUND_STORE = (10000, 10000)      # images per data_batch file, test
+# (c1): 5,000 images per data_batch file (25,000: 22,500 train, 2,500
+# dev), test 10,000, so the script keeps near its time with phase (d)
+CIFAR_FOUND_STORE = (5000, 10000)       # images per data_batch file, test
 CIFAR_SEARCH_STORE = (512, 16)          # 2,560 train: 2,304 train, 256 dev
 CIFAR_FOUND_ARGV = ["--epochs", "1", "--use_intermediate"]
 CIFAR_SEARCH_ARGV = ["--epochs", "1", "--search_iterations", "1",
                      "--max_fusions", "2", "--num_samples", "4",
                      "--no-verbose", "--seed", str(SEED)]
 CIFAR_WS_ROWS = 4           # (c4): the first step cut to this many rows
-# (c3): the first step's block rows cut to the first 24 of the 80, so the
-# script keeps near its time with phase (i) added
-CIFAR_SEARCH_ROWS = 24
+# (c3): the first step's block rows cut to the first 12 of the 80, so the
+# script keeps near its time with phases (i) and (d) added
+CIFAR_SEARCH_ROWS = 12
 CIFAR_WARM = (3, 20, 5)     # warm train steps: untimed, timed, profiled
 CIFAR_STEP_IMAGES = 16      # (c5) the f64 step's batch
 CIFAR_DROPPATH_DRAWS = 2000
@@ -2125,7 +2160,7 @@ def cifar_found(torch, work, store):
     """(c1) ``mfas_tpu_torch.main_found_cifar`` at the CLI's defaults
     (fixed mode, --planes 36 doubling to 144, 8 cells, B=128, --drop_path
     0.1 --drop_prob 0.2) with --epochs 1 --use_intermediate
-    --save_checkpoint on 45,000 / 5,000 / 10,000 images: finite losses,
+    --save_checkpoint on 22,500 / 2,500 / 10,000 images: finite losses,
     Model Acc above 0.2 (chance is 0.1), the checkpoint loads into a fresh
     net with strict keys."""
     import numpy as np
@@ -3255,6 +3290,624 @@ def tools_phase(torch, tk, work, root, search):
 # the least time of the input kernels at (20,8,256,256,3): each uint8 byte
 # read once and each output written once at 3.35 TB/s (their 2 operations
 # per element at 67 TFLOP/s f32 take ~1 us: bytes bound them)
+# --------------------------------------------------------------------------
+# (d) multi-GPU data parallelism (parallel/mesh.py). The card's machine has
+# one H100 and NCCL refuses two ranks on one device, so (d1) runs NCCL at
+# world 1 and (d2)-(d5) run two gloo ranks that time-share the card (gloo
+# stages CUDA tensors through the host). Every rank is a subprocess
+# (``python3 chip_smoke.py --rank CASE RANK WORLD ADDR WORK``): this
+# script's own process never holds a process group. No rate from (d2)-(d5)
+# is a scaling figure.
+# --------------------------------------------------------------------------
+TIME_SHARING = "two processes time-sharing one H100 over gloo"
+D_TIMEOUT = 300          # seconds, per multi-process run (and gloo's)
+# (d2) runs without --batchnorm: over random backbones every clip pools
+# nearly the same features, so the head's BatchNorm1d statistics cancel
+# catastrophically in float32 (E[x^2] - E[x]^2 with std << mean). The f32
+# step is ill-conditioned all the same (the deepest convolutions' small
+# gradients move by percents of their max with the summation order), so
+# two ranks are held to one exactly in float64, and in float32 to the
+# float64 gradients no worse than one rank's f32 ones
+D5_STEPS = 3
+D5_ARGV = ["--drop_path", "0.1"]
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_rank_processes(cases, world, work, timeout=D_TIMEOUT):
+    """``world`` rank processes that run ``cases`` in turn, joined at a free
+    localhost port (one group for all the cases); each rank writes
+    {case: result} as JSON, returned per rank with its output. A rank that
+    fails or outlives ``timeout`` fails the run, and every rank is
+    stopped."""
+    script = os.path.abspath(__file__)
+    addr = f"127.0.0.1:{_free_port()}"
+    name = "-".join(cases)
+    logs = [os.path.join(work, f"{name}.{r}.log") for r in range(world)]
+    procs = []
+    t0 = time.time()
+    try:
+        for r in range(world):
+            with open(logs[r], "w") as log:
+                procs.append(subprocess.Popen(
+                    [sys.executable, script, "--rank", ",".join(cases),
+                     str(r), str(world), addr, work], stdout=log,
+                    stderr=subprocess.STDOUT, cwd=os.path.dirname(script)))
+        for p in procs:
+            p.wait(timeout=max(1.0, timeout - (time.time() - t0)))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    seconds = time.time() - t0
+    out = []
+    for r, p in enumerate(procs):
+        with open(logs[r]) as f:
+            text = f.read()
+        if p.returncode != 0:
+            print(text[-6000:], flush=True)
+        check(p.returncode == 0, f"({name}) rank {r} of {world} exited "
+              f"{p.returncode} after {seconds:.1f} s")
+        with open(os.path.join(work, f"{name}.{r}.json")) as f:
+            out.append(json.load(f))
+    print(f"({name}) {world} process(es) in {seconds:.1f} s", flush=True)
+    return out, seconds
+
+
+def rank_main(argv):
+    """One process of phase (d): ``CASES RANK WORLD ADDR WORK``, CASES
+    comma-separated. (d1) joins its group through the CLI's --dist_* flags;
+    the others join one gloo group here, before any CLI or engine runs,
+    which then uses it."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    cases, rank, world, addr, work = (argv[0].split(","), int(argv[1]),
+                                      int(argv[2]), argv[3], argv[4])
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    if cases != ["d1"]:
+        dist.init_process_group(
+            "gloo", init_method=f"tcp://{addr}", world_size=world,
+            rank=rank, timeout=datetime.timedelta(seconds=D_TIMEOUT))
+    res = {}
+    try:
+        for case in cases:
+            res[case] = RANK_CASES[case](torch, rank, world, addr, work)
+            torch.cuda.empty_cache()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    with open(os.path.join(work, f"{'-'.join(cases)}.{rank}.json"),
+              "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def _group(world):
+    import torch.distributed as dist
+
+    return dist.group.WORLD if world > 1 else None
+
+
+def _flat_params(torch, model):
+    return torch.cat([t.detach().reshape(-1).float()
+                      for t in model.state_dict().values()])
+
+
+def _equal_across_ranks(torch, t, group):
+    """True on every rank when ``t`` is bitwise rank 0's (a broadcast, then
+    a MIN of the per-rank verdicts)."""
+    import torch.distributed as dist
+
+    lead = t.clone()
+    dist.broadcast(lead, src=0, group=group)
+    same = torch.tensor([int(torch.equal(lead, t))])
+    dist.all_reduce(same, op=dist.ReduceOp.MIN, group=group)
+    return bool(same.item())
+
+
+def _d1_slice_argv(work):
+    return ["--checkpointdir", work, "--test_cp", "net.pt",
+            "--packed_datadir", os.path.join(work, "packed"), "--conf", "4",
+            "--num_outputs", "60", "--batchsize", "20",
+            "--inner_representation_size", "128", "--batchnorm",
+            "--vid_len", "8", "32", "--hbm_resident"]
+
+
+def rank_d1(torch, rank, world, addr, work):
+    """NCCL at world 1 through the CLI's own --dist_* flags: the --test_cp
+    slice with --use_dataparallel against the plain run, bitwise; then
+    all_reduce_grads, the synced BatchNorm (forward and backward) and
+    gather_rows over the one-rank NCCL group against their no-group
+    versions, bitwise."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from mfas_tpu_torch import main_found_ntu as tmain
+    from mfas_tpu_torch.core.layers import BatchNorm3d, set_data_group
+    from mfas_tpu_torch.engine.classifier import valid_rows
+    from mfas_tpu_torch.ops import input_kernels as tk
+    from mfas_tpu_torch.parallel import mesh as pm
+
+    argv = _d1_slice_argv(work)
+    out = {"launches": {}}
+    runs = {}
+    for name, extra in (("plain", []), ("dataparallel", [
+            "--use_dataparallel", "--dist_coordinator", addr,
+            "--dist_num_processes", "1", "--dist_process_id", "0"])):
+        tk.reset_launch_counts()
+        run = tmain.main(argv + extra)
+        out["launches"][name] = dict(tk.launch_counts)
+        runs[name] = (run.acc, valid_rows(run.eval))
+    check(dist.is_initialized() and dist.get_backend() == "nccl"
+          and dist.get_world_size() == 1,
+          "(d1) the CLI did not join a one-rank NCCL group")
+    out["model_acc"] = [runs["plain"][0], runs["dataparallel"][0]]
+    out["logits_bitwise"] = bool(np.array_equal(runs["plain"][1],
+                                                runs["dataparallel"][1]))
+    g = dist.group.WORLD
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    dev = torch.device("cuda", torch.cuda.current_device())
+
+    # all_reduce_grads: one flat buffer per dtype, SUM over one rank
+    params = [torch.nn.Parameter(torch.zeros(s, device=dev, dtype=dt))
+              for s, dt in (((512, 64), torch.float32), ((64,), torch.float32),
+                            ((3, 5, 7), torch.bfloat16))]
+    for p in params:
+        p.grad = torch.randn(p.shape, generator=gen, device=dev).to(p.dtype)
+    want = [p.grad.clone() for p in params]
+    pm.all_reduce_grads(params, g)
+    out["all_reduce_grads_bitwise"] = all(
+        torch.equal(p.grad, w) for p, w in zip(params, want))
+
+    # the synced BatchNorm, forward and backward
+    x0 = torch.randn((10, 64, 8, 56, 56), generator=gen, device=dev) * 2 + 1
+    gy = torch.randn(x0.shape, generator=gen, device=dev)
+    res = []
+    for group in (None, g):
+        bn = BatchNorm3d(64, device=dev)
+        set_data_group(bn, group)
+        x = x0.clone().requires_grad_()
+        y = bn(x)
+        (y * gy).sum().backward()
+        res.append([y, x.grad, bn.weight.grad, bn.bias.grad,
+                    bn.running_mean, bn.running_var])
+    out["batchnorm_bitwise"] = all(torch.equal(a, b)
+                                   for a, b in zip(*res))
+
+    # gather_rows over the (one-rank) row-split store, with a frame pick
+    store = np.random.RandomState(SEED).randint(
+        0, 256, (12, 24, 64, 64, 3)).astype(np.uint8)
+    local = torch.from_numpy(pm.split_rows(store, g)).to(dev)
+    idx = torch.as_tensor([11, 0, 5, 5, 3, 7], device=dev)
+    t = torch.as_tensor(np.random.RandomState(1).randint(0, 24, (6, 8)),
+                        device=dev)
+
+    def pick(st, rows):
+        return st[rows[:, None], t]
+
+    out["gather_rows_bitwise"] = bool(
+        torch.equal(pm.gather_rows(local, idx, g),
+                    pm.gather_rows(local, idx, None))
+        and torch.equal(pm.gather_rows(local, idx, g, pick),
+                        pm.gather_rows(local, idx, None, pick))
+        and torch.equal(pm.gather_rows(local, idx, g).cpu(),
+                        torch.from_numpy(store)[idx.cpu()]))
+    return out
+
+
+D2_ARGV = ["--conf", "4", "--num_outputs", "60", "--batchsize", "20",
+           "--vid_len", "8", "32", "--drpt", "0",
+           "--hbm_resident", "--random_backbones"]
+
+
+def _d2_step(torch, tmain, args, init, group, dtype):
+    """One phase-2 step in ``dtype`` (float64 under --remat), warm in
+    float32 (a warm-up step, the weights and Adam reset, the measured
+    step; float64 is not timed). Returns what it measured, the loss, the
+    gradients and the BatchNorm statistics after it, and the model."""
+    from mfas_tpu_torch.data import ntu as d
+    from mfas_tpu_torch.data.resident import ResidentLoader, ResidentNTUStore
+    from mfas_tpu_torch.engine.classifier import place_batch, set_trainable
+    from mfas_tpu_torch.ops import input_kernels as tk
+    from mfas_tpu_torch.parallel import mesh as pm
+
+    dev = torch.device("cuda")
+    model = tmain.build_model(args, tmain.FOUND_CONFS[4], dev).to(dtype)
+    store = ResidentNTUStore(os.path.join(args.packed_datadir, "train"), dev,
+                             args=args)
+    loader = ResidentLoader(store, 20, d.Compose([
+        d.AugCrop(), d.NormalizeLen(args.vid_len)]), shuffle=True)
+    batch = place_batch(next(iter(loader)), dev, group)
+    engine = tmain.make_engine(model, args, dev, group, store)
+    prep = engine.batch_prep
+    engine.batch_prep = lambda b: {
+        k: v.to(dtype) if torch.is_tensor(v) and v.is_floating_point()
+        else v for k, v in prep(b).items()}
+    set_trainable(model, None)
+    model.train()
+    for _ in ("warm-up", "measured")[dtype == torch.float64:]:
+        model.load_state_dict(init)
+        opt = engine.make_optimizer()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        tk.reset_launch_counts()
+        t0 = time.perf_counter()
+        loss, _ = engine._train_step(batch, opt, 1e-3)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    out = {"launches": dict(tk.launch_counts), "step_ms": seconds * 1e3,
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "rows": int(batch["label"].shape[0])}
+    grads = {n: p.grad for n, p in model.named_parameters()}
+    stats = {k: v for k, v in model.state_dict().items()
+             if k.endswith(("running_mean", "running_var"))}
+    return out, pm.reduce_sum(loss, group), grads, stats, model
+
+
+def _d2_compare(torch, got, want):
+    """Per tensor of ``got`` against ``want`` (both on the host): max |a -
+    b| over the tensor's max, and the norm-wise relative error; and the
+    whole gradient's norm-wise relative error."""
+    out, num, den = {}, 0.0, 0.0
+    for k, g in got.items():
+        if g is None or want[k] is None:
+            check(g is None and want[k] is None,
+                  f"(d2) {k}: a gradient on one side only")
+            continue
+        w = want[k].double()
+        d = g.double() - w
+        out[k] = (float(d.abs().max() / w.abs().max().clamp_min(1e-300)),
+                  float(d.norm() / w.norm().clamp_min(1e-300)))
+        num += float(d.norm()) ** 2
+        den += float(w.norm()) ** 2
+    return out, (num / den) ** 0.5
+
+
+def rank_d2(torch, rank, world, addr, work):
+    """(d2) on ``world`` ranks from the weights in d2_init.pt, on the first
+    resident train batch (B=20; 20 / world rows and one K2 launch per
+    rank): one warm phase-2 step in float32, and one in float64 under
+    --remat (the recomputation re-issues BatchNorm's reductions). World 1
+    writes its results to d2_ref.pt; each rank of world 2 compares with
+    them: in float64 every gradient within 1e-9 of its tensor's max, the
+    loss within 1e-12 and the statistics within 1e-12 of their max; in
+    float32 the loss within 1e-5, the statistics within 1e-5 of their max,
+    and, against the float64 gradients, the whole gradient's norm-wise error
+    at most twice one rank's float32 error (plus 1e-6) and no tensor's more
+    than ten times (plus 1e-5; card_vs_cpu's rule); the ranks' parameters
+    after each step bitwise equal."""
+    from mfas_tpu_torch import main_found_ntu as tmain
+
+    group = _group(world)
+    init = torch.load(os.path.join(work, "d2_init.pt"), weights_only=True)
+    res, out = {}, {}
+    for name, dtype, extra in (("f32", torch.float32, []),
+                               ("f64_remat", torch.float64, ["--remat"])):
+        args = tmain.parse_args(["--packed_datadir",
+                                 os.path.join(work, "packed"), *D2_ARGV,
+                                 *extra])
+        meta, loss, grads, stats, model = _d2_step(torch, tmain, args, init,
+                                                   group, dtype)
+        out[name] = meta
+        res[name] = {"loss": float(loss),
+                     "grads": {k: None if v is None else v.cpu()
+                               for k, v in grads.items()},
+                     "stats": {k: v.cpu() for k, v in stats.items()}}
+        if group is not None:
+            out[name]["params_bitwise_across_ranks"] = _equal_across_ranks(
+                torch, _flat_params(torch, model), group)
+        del model, grads, stats
+        torch.cuda.empty_cache()
+    if group is None:
+        torch.save(res, os.path.join(work, "d2_ref.pt"))
+        return {k: {**out[k], "loss": res[k]["loss"]} for k in out}
+    ref = torch.load(os.path.join(work, "d2_ref.pt"), weights_only=True)
+    for name in out:
+        r, m = ref[name], res[name]
+        out[name]["loss"] = m["loss"]
+        out[name]["loss_rel"] = abs(m["loss"] - r["loss"]) / abs(r["loss"])
+        out[name]["stats_err_rel_max"] = max(
+            float((v - r["stats"][k]).abs().max() / r["stats"][k].abs().max())
+            for k, v in m["stats"].items())
+    f64, _ = _d2_compare(torch, res["f64_remat"]["grads"],
+                         ref["f64_remat"]["grads"])
+    out["f64_remat"]["grad_err_rel_max"] = max(v[0] for v in f64.values())
+    truth = ref["f64_remat"]["grads"]
+    mine, mine_all = _d2_compare(torch, res["f32"]["grads"], truth)
+    one, one_all = _d2_compare(torch, ref["f32"]["grads"], truth)
+    # per tensor, norm-wise: mine <= 10 x one rank's + 1e-5 (a floor: a
+    # well-conditioned tensor's f32 error is 1e-7-1e-5, the whole
+    # gradient's ~2.5e-2 here)
+    excess = {k: mine[k][1] - 10 * one[k][1] for k in mine}
+    worst = sorted(excess, key=excess.get, reverse=True)[:5]
+    out["f32"].update(
+        grad_err_vs_f64_worst={k: [mine[k][1], one[k][1]] for k in worst},
+        grad_err_vs_f64_excess_max=excess[worst[0]],
+        grad_err_vs_f64_ratio_max=max(mine[k][1] / one[k][1] for k in mine),
+        grad_err_vs_f64_whole=[mine_all, one_all],
+        grad_err_vs_one_rank_max=max(
+            v[0] for v in _d2_compare(torch, res["f32"]["grads"],
+                                      ref["f32"]["grads"])[0].values()),
+        one_rank_vs_f64_max=max(v[0] for v in one.values()))
+    return out
+
+
+def rank_d3(torch, rank, world, addr, work):
+    """``main_found_ntu --use_dataparallel --hbm_resident
+    --shard_resident_store`` (one epoch per phase, --save_checkpoint) on
+    this rank's part of the store: Model Acc, the kernels' launches, the
+    file written."""
+    from mfas_tpu_torch import main_found_ntu as tmain
+    from mfas_tpu_torch.ops import input_kernels as tk
+
+    ck = os.path.join(work, "d3")
+    argv = ["--checkpointdir", ck, "--packed_datadir",
+            os.path.join(work, "packed"), *TRAIN_ARGV, "--hbm_resident",
+            "--use_dataparallel", "--shard_resident_store",
+            "--save_checkpoint"]
+    torch.cuda.reset_peak_memory_stats()
+    tk.reset_launch_counts()
+    run = tmain.main(argv)
+    return {"model_acc": run.acc, "launches": dict(tk.launch_counts),
+            "saved": run.saved,
+            "losses": [e["loss"] for r in run.train for e in r.epochs],
+            "train_clips_per_s": [r.train_clips / r.train_seconds
+                                  for r in run.train],
+            "peak_bytes": torch.cuda.max_memory_allocated()}
+
+
+def rank_d4(torch, rank, world, addr, work):
+    """``main_searchable_ntu --use_dataparallel --cache_features
+    --batchnorm --shard_feature_bank`` cut to one search iteration, with a
+    search state, then resumed from it: the first step's accuracies, the
+    printed results, K1's launches."""
+    import contextlib
+    import io
+
+    from mfas_tpu_torch import main_searchable_ntu as smain
+    from mfas_tpu_torch.ops import input_kernels as tk
+
+    state = os.path.join(work, "d4_state.pkl")
+    argv = ["--packed_datadir", os.path.join(work, "search"),
+            "--checkpointdir", work, *SEARCH_ARGV, "--cache_features",
+            "--batchnorm", "--search_iterations", "1", "--use_dataparallel",
+            "--shard_feature_bank", "--search_state", state]
+    out = {}
+    for name, extra in (("first", []), ("resumed", ["--resume_search"])):
+        buf = io.StringIO()
+        tk.reset_launch_counts()
+        with contextlib.redirect_stdout(buf):
+            run = smain.main(argv + extra)
+        text = buf.getvalue()
+        out[name] = {
+            "launches": dict(tk.launch_counts), "seconds": run.seconds,
+            "candidates": run.candidates,
+            "first_step": [[c, a] for L, entries in run.data.state()
+                           if L == 1 for c, a in entries],
+            "listing": text.split("Now listing best architectures\n")[1]
+            .splitlines()}
+    return out
+
+
+def rank_d5(torch, rank, world, addr, work):
+    """The CIFAR found net at the CLI's defaults with --drop_path 0.1:
+    D5_STEPS train steps on one global batch of 128 (128 / world rows per
+    rank); after each, the ranks' parameters and buffers must be bitwise
+    equal (the same DropPath draws, the same reduced gradient)."""
+    import numpy as np
+
+    from mfas_tpu_torch import main_found_cifar as fmain
+    from mfas_tpu_torch.engine.cifar import CifarEngine
+    from mfas_tpu_torch.engine.classifier import place_batch, set_trainable
+
+    group = _group(world)
+    args = fmain.parse_args(["--data_dir", work, *D5_ARGV])
+    model = fmain.build_model(args, fmain.parse_conf(args.conf), "cuda")
+    engine = CifarEngine(model, "cuda", group=group)
+    engine.generator.manual_seed(SEED)
+    set_trainable(model, None)
+    model.train()
+    opt = engine.make_optimizer()
+    rs = np.random.RandomState(SEED)
+    batch = {"image": rs.randn(128, 3, 32, 32).astype(np.float32),
+             "label": rs.randint(0, 10, 128).astype(np.int32),
+             "_mask": np.ones(128, np.float32)}
+    placed = place_batch(batch, "cuda", group)
+    equal, times = [], []
+    for _ in range(D5_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine._train_step(placed, opt, 1e-3)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        equal.append(_equal_across_ranks(torch, _flat_params(torch, model),
+                                         group))
+    return {"bitwise_after_each_step": equal, "step_ms": times,
+            "rows": int(placed["label"].shape[0])}
+
+
+RANK_CASES = {"d1": rank_d1, "d2": rank_d2, "d3": rank_d3, "d4": rank_d4,
+              "d5": rank_d5}
+
+
+def multi_gpu_phase(torch, work, train, search):
+    """(d1)-(d5); returns the measured numbers and each run's kernel
+    launches, by path."""
+    import numpy as np
+
+    from mfas_tpu_torch import main_found_ntu as tmain
+    from mfas_tpu_torch.runtime.checkpoint import load_state_dict
+
+    out = {"label": TIME_SHARING}
+    t0 = time.time()
+    torch.cuda.empty_cache()
+
+    phase("(d1) NCCL at world 1 through --dist_*")
+    (d1,), out["d1_seconds"] = run_rank_processes(["d1"], 1, work)
+    d1 = d1["d1"]
+    check(d1["model_acc"][0] == d1["model_acc"][1] and d1["logits_bitwise"],
+          f"(d1) --use_dataparallel at world 1 is not the plain run: {d1}")
+    for k in ("all_reduce_grads_bitwise", "batchnorm_bitwise",
+              "gather_rows_bitwise"):
+        check(d1[k], f"(d1) {k}: False")
+    check(all(c == {"u8_normalize": 0, "u8_gather_normalize": 3}
+              for c in d1["launches"].values()),
+          f"(d1) launches {d1['launches']}, want 3 of K2 per run")
+    print(f"(d1) Model Acc {d1['model_acc']}, logits bitwise, primitives "
+          f"bitwise over the one-rank NCCL group", flush=True)
+    out["d1"] = d1
+
+    phase("(d2) the one-rank step, full width, B=20")
+    args = tmain.parse_args(["--packed_datadir", os.path.join(work, "packed"),
+                             *D2_ARGV])
+    net = tmain.build_model(args, tmain.FOUND_CONFS[4], "cpu")
+    torch.save(net.state_dict(), os.path.join(work, "d2_init.pt"))
+    del net
+    (ref,), out["d2_one_rank_seconds"] = run_rank_processes(["d2"], 1,
+                                                             work)
+    ref = ref["d2"]
+    # one pair of rank processes runs (d2)-(d5) in turn
+    phase(f"(d2)-(d5) over two ranks ({TIME_SHARING})")
+    os.makedirs(os.path.join(work, "d3"))
+    ranks, out["d2_d5_seconds"] = run_rank_processes(
+        ["d2", "d3", "d4", "d5"], 2, work)
+    d2, d3, d4, d5 = ([r[c] for r in ranks] for c in ("d2", "d3", "d4", "d5"))
+    for r in d2:
+        for name in ("f32", "f64_remat"):
+            m = r[name]
+            check(m["launches"] == {"u8_normalize": 0,
+                                    "u8_gather_normalize": 1}
+                  and m["rows"] == 10, f"(d2) {name} launches/rows {m}")
+            check(m["params_bitwise_across_ranks"],
+                  f"(d2) {name}: the ranks' parameters differ after the step")
+        f32, f64 = r["f32"], r["f64_remat"]
+        check(f64["loss_rel"] <= 1e-12 and f64["stats_err_rel_max"] <= 1e-12
+              and f64["grad_err_rel_max"] <= 1e-9,
+              f"(d2) float64 two ranks against one: {f64}")
+        check(f32["loss_rel"] <= 1e-5 and f32["stats_err_rel_max"] <= 1e-5,
+              f"(d2) float32 loss / statistics: {f32}")
+        mine, one = f32["grad_err_vs_f64_whole"]
+        check(mine <= 2 * one + 1e-6 and f32["grad_err_vs_f64_excess_max"]
+              <= 1e-5, f"(d2) float32 gradients of two ranks against float64:"
+              f" whole {mine} vs one rank's {one}; worst tensors "
+              f"{f32['grad_err_vs_f64_worst']}")
+    f32, f64 = d2[0]["f32"], d2[0]["f64_remat"]
+    print(f"(d2) float64 --remat: loss {f64['loss']:.12f} (one rank "
+          f"{ref['f64_remat']['loss']:.12f}), gradients within "
+          f"{f64['grad_err_rel_max']:.3e} of their max, statistics "
+          f"{f64['stats_err_rel_max']:.3e}; float32: loss relative "
+          f"{f32['loss_rel']:.3e}, statistics {f32['stats_err_rel_max']:.3e} "
+          f"of their max, gradients {f32['grad_err_vs_one_rank_max']:.3e} of "
+          f"their max from one rank's (one rank's f32 against f64: "
+          f"{f32['one_rank_vs_f64_max']:.3e}), norm-wise against f64 "
+          f"{f32['grad_err_vs_f64_whole'][0]:.3e} (one rank "
+          f"{f32['grad_err_vs_f64_whole'][1]:.3e}), a tensor at most "
+          f"{f32['grad_err_vs_f64_ratio_max']:.3f}x one rank's; f32 step "
+          f"{[round(r['f32']['step_ms'], 1) for r in d2]} ms per rank vs "
+          f"{ref['f32']['step_ms']:.1f} ms on one ({TIME_SHARING}); peak "
+          f"{[round(r['f32']['peak_bytes'] / 2**30, 2) for r in d2]} GiB per "
+          f"rank vs {ref['f32']['peak_bytes'] / 2**30:.2f}", flush=True)
+    out["d2"] = {"one_rank": ref, "ranks": d2}
+
+    want_acc = train["a_resident_f32"]["model_acc"]
+    n_epochs = 2          # one per phase
+    want_k1 = n_epochs * (BATCHES["train"] + BATCHES["dev"]) + BATCHES["test"]
+    for r in d3:
+        check(r["launches"] == {"u8_normalize": want_k1,
+                                "u8_gather_normalize": 0},
+              f"(d3) launches {r['launches']}, want {want_k1} of K1")
+        check(all(np.isfinite(r["losses"])), f"(d3) losses {r['losses']}")
+    check(d3[0]["model_acc"] == d3[1]["model_acc"],
+          f"(d3) Model Acc differs across ranks: {d3}")
+    check(abs(d3[0]["model_acc"] - want_acc) <= 2 / 50,
+          f"(d3) Model Acc {d3[0]['model_acc']} vs one rank's {want_acc}")
+    files = os.listdir(os.path.join(work, "d3"))
+    check(d3[1]["saved"] is None and len(files) == 1 and d3[0]["saved"]
+          and os.path.basename(d3[0]["saved"]) == files[0],
+          f"(d3) checkpoints written: {files}, ranks {[r['saved'] for r in d3]}")
+    args = tmain.parse_args(["--packed_datadir", "p", *TRAIN_ARGV])
+    net = tmain.build_model(args, tmain.FOUND_CONFS[4], "cpu")
+    net.load_state_dict(load_state_dict(d3[0]["saved"]), strict=True)
+    del net
+    print(f"(d3) Model Acc {d3[0]['model_acc']} on both ranks (one rank "
+          f"{want_acc}); K1 {want_k1} launches per rank, K2 0; only rank 0 "
+          f"wrote {files[0]}, which loads strictly; train clips/s per phase "
+          f"{[[round(v, 2) for v in r['train_clips_per_s']] for r in d3]} "
+          f"({TIME_SHARING})", flush=True)
+    out["d3"] = {"ranks": d3, "one_rank_model_acc": want_acc}
+
+    want_first = dict((tuple(map(tuple, c)), a)
+                      for c, a in search["s4_first"]["first_step"])
+    for r in d4:
+        first = r["first"]
+        check(first["launches"] == {"u8_normalize": 5,
+                                    "u8_gather_normalize": 0},
+              f"(d4) launches {first['launches']}, want 5 of K1")
+        # the state holds the whole cut search: the resume trains nothing
+        # and lists what the first run found
+        check(r["resumed"]["listing"] == first["listing"]
+              and r["resumed"]["candidates"] == 0,
+              f"(d4) the resumed run: {r['resumed']}")
+        got = dict((tuple(map(tuple, c)), a) for c, a in first["first_step"])
+        check(set(got) == set(want_first), "(d4) other first-step confs")
+        out.setdefault("d4_first_step_err_max", max(
+            abs(got[c] - want_first[c]) for c in got))
+    check(d4[0]["first"]["listing"] == d4[1]["first"]["listing"]
+          and d4[0]["first"]["first_step"] == d4[1]["first"]["first_step"],
+          "(d4) the ranks printed different results")
+    check(out["d4_first_step_err_max"] <= 0.02,
+          f"(d4) first-step accuracies {out['d4_first_step_err_max']} from "
+          "the one-rank run's")
+    print(f"(d4) {d4[0]['first']['candidates']} candidates per rank in "
+          f"{d4[0]['first']['seconds']:.1f} s; first step within "
+          f"{out['d4_first_step_err_max']:.4f} of one rank's; both ranks "
+          f"printed {d4[0]['first']['listing'][:1]}...; the resume agreed "
+          f"({TIME_SHARING})", flush=True)
+    out["d4"] = d4
+
+    for r in d5:
+        check(r["rows"] == 64 and r["bitwise_after_each_step"] ==
+              [True] * D5_STEPS, f"(d5) {r}")
+    print(f"(d5) parameters bitwise equal across ranks after each of "
+          f"{D5_STEPS} steps; step ms per rank "
+          f"{[[round(t, 1) for t in r['step_ms']] for r in d5]} "
+          f"({TIME_SHARING})", flush=True)
+    out["d5"] = d5
+    out["seconds"] = time.time() - t0
+    print(f"multi-GPU phase: {out['seconds']:.1f} s", flush=True)
+    out["launches_by_path"] = {
+        "u8_normalize": {
+            **{f"multi_gpu_d3_sharded_store_rank{i}":
+               r["launches"]["u8_normalize"] for i, r in enumerate(d3)},
+            **{f"multi_gpu_d4_sharded_bank_search_rank{i}":
+               r["first"]["launches"]["u8_normalize"]
+               for i, r in enumerate(d4)}},
+        "u8_gather_normalize": {
+            **{f"multi_gpu_d1_world1_{k}": v["u8_gather_normalize"]
+               for k, v in d1["launches"].items()},
+            **{f"multi_gpu_d2_{name}_step_rank{i}":
+               r[name]["launches"]["u8_gather_normalize"]
+               for i, r in enumerate(d2) for name in ("f32", "f64_remat")},
+            **{f"multi_gpu_d2_{name}_step_one_rank":
+               ref[name]["launches"]["u8_gather_normalize"]
+               for name in ("f32", "f64_remat")}}}
+    return out
+
+
 HBM_BYTES_PER_S = 3.35e12
 
 
@@ -3335,6 +3988,8 @@ def main():
         cifar = cifar_phase(torch, tk, work)
         torch.cuda.empty_cache()
         tools = tools_phase(torch, tk, work, root, search)
+        torch.cuda.empty_cache()
+        multi = multi_gpu_phase(torch, work, train, search)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -3355,11 +4010,14 @@ def main():
         serving[f"i6_{name}"] = phase_out["i6_serving"]
     print(json.dumps({"serving": serving, "nvidia_smi": smi}))
     print(json.dumps({"tools": tools, "nvidia_smi": smi}))
+    print(json.dumps({"multi_gpu": multi, "nvidia_smi": smi}))
     src = "mfas_tpu_torch/csrc/input_kernels.cu"
     # launches: K1's on its two main paths (streamed training, one per
     # train, dev and test batch; the default search, s1), K2's on the
     # resident training run; the AV-MNIST, MM-IMDB and CIFAR paths and the
-    # operator tools' (t) launch neither.
+    # operator tools' (t) launch neither. Phase (d) adds each rank's: K2 on
+    # the replicated store ((d1), (d2)), K1 on the sharded store (d3) and
+    # in the sharded-bank search's extraction (d4).
     # No single PyTorch call computes either kernel's function, so
     # library_ms is null (gather + K1 stands beside K2 in the kernel_times
     # line)
@@ -3382,13 +4040,15 @@ def main():
                 "search_default_s1": search["s1_default"]["k1_launches"],
                 **{k: v["u8_normalize"] for k, v in others.items()},
                 **host,
-                **{k: v["u8_normalize"] for k, v in predicts.items()}}
+                **{k: v["u8_normalize"] for k, v in predicts.items()},
+                **multi["launches_by_path"]["u8_normalize"]}
     k2_paths = {"found_training_resident_f32":
                 train["a_resident_f32"]["launches"],
                 **{k: v["u8_gather_normalize"] for k, v in others.items()},
                 **{k: 0 for k in host},
                 **{k: v["u8_gather_normalize"]
-                   for k, v in predicts.items()}}
+                   for k, v in predicts.items()},
+                **multi["launches_by_path"]["u8_gather_normalize"]}
     bound = input_kernel_bound_ms(4)
     f32 = ms["f32"]
     # ms and plain_ms under the spin timer; both timers' readings beside
@@ -3415,6 +4075,8 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank"]:          # one process of phase (d)
+        sys.exit(rank_main(sys.argv[2:]))
     try:
         sys.exit(main())
     except SmokeFailure as e:

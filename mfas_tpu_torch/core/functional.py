@@ -65,40 +65,60 @@ def interpolate_bilinear(x, size):
                           align_corners=False).to(x.dtype)
 
 
-def _drop(x, p, mask_shape, generator):
+def _drop(x, p, mask_shape, generator, shards=()):
     if generator is None:
         raise ValueError("dropout draws its mask from an explicit "
                          "torch.Generator; got None")
-    keep = torch.empty(mask_shape, device=x.device, dtype=x.dtype)
-    return x * keep.bernoulli_(1.0 - p, generator=generator) / (1.0 - p)
+    full = list(mask_shape)
+    for dim, _, count in shards:
+        full[dim] *= count
+    keep = torch.empty(full, device=x.device, dtype=x.dtype)
+    keep.bernoulli_(1.0 - p, generator=generator)
+    for dim, index, count in shards:
+        keep = keep.narrow(dim, index * mask_shape[dim], mask_shape[dim])
+    return x * keep / (1.0 - p)
 
 
-def dropout(x, p, generator):
+def dropout(x, p, generator, shards=()):
     """torch Dropout train mode: zero with prob p, keep scaled by 1/(1-p).
     The mask comes from ``generator`` (on x's device), never from torch's
-    global RNG."""
+    global RNG. ``shards``: (dim, index, count) triples saying that ``x``
+    is part ``index`` of ``count`` equal parts of a global tensor along
+    ``dim``; the mask is drawn at the global shape and this part kept."""
     if p <= 0.0:
         return x
-    return _drop(x, p, x.shape, generator)
+    return _drop(x, p, x.shape, generator, shards)
 
 
-def dropout2d(x, p, generator):
+def dropout2d(x, p, generator, shards=()):
     """Whole channels (axis 1) on rank >= 3 inputs; element-wise on rank
     <= 2, as the JAX package's dropout2d."""
     if p <= 0.0:
         return x
     if x.dim() <= 2:
-        return dropout(x, p, generator)
-    return _drop(x, p, x.shape[:2] + (1,) * (x.dim() - 2), generator)
+        return dropout(x, p, generator, shards)
+    return _drop(x, p, x.shape[:2] + (1,) * (x.dim() - 2), generator,
+                 shards)
 
 
-def cross_entropy(logits, labels, weights=None):
+def cross_entropy(logits, labels, weights=None, count=None):
     """torch CrossEntropyLoss (mean reduction); ``weights`` is an optional
-    per-sample 0/1 mask for padded batches (mean over valid samples)."""
+    per-sample 0/1 mask for padded batches (mean over valid samples).
+    ``count``: the valid samples of the global batch when these rows are
+    one rank's part of it (parallel/mesh.py), else ``weights.sum()``."""
     nll = TF.cross_entropy(logits, labels.long(), reduction="none")
     if weights is None:
         return nll.mean()
-    return (nll * weights).sum() / torch.clamp(weights.sum(), min=1.0)
+    return masked_mean(nll, weights, count)
+
+
+def masked_mean(values, weights, count=None):
+    """sum(values * weights) / max(count, 1), ``count`` defaulting to
+    ``weights.sum()``: a rank's share of the global masked mean when
+    ``count`` is the global one."""
+    if count is None:
+        count = weights.sum()
+    return (values * weights).sum() / torch.clamp(count, min=1.0)
 
 
 def weighted_bce_elements(logits, targets, pos_weight, stable=False):

@@ -14,6 +14,7 @@ from torch import nn
 
 from mfas_tpu_torch.core import functional as F
 from mfas_tpu_torch.core import init as I
+from mfas_tpu_torch.parallel.mesh import all_reduce_sum, group_rank, group_size
 
 
 # --------------------------------------------------------------------------
@@ -99,6 +100,14 @@ class _BatchNorm(nn.Module):
     ``update_running_stats = False`` makes a train-mode forward leave the
     running statistics and ``num_batches_tracked`` alone (the recomputation
     of a rematerialized segment, core/remat.py).
+
+    ``group`` (``set_data_group``): a process group over which the batch is
+    split by rows. The per-channel ``[sum x, sum x^2, count]`` go through a
+    differentiable SUM over it (parallel/mesh.py::all_reduce_sum, whose
+    backward sums the upstream gradient), so every rank normalizes with the
+    statistics of the global batch and the running variance's unbiased
+    factor counts the global rows. Without a group the same sums are used
+    as they are.
     """
 
     def __init__(self, num_features, eps=1e-5, momentum=0.1, *, device):
@@ -107,6 +116,7 @@ class _BatchNorm(nn.Module):
         self.eps = eps
         self.momentum = momentum
         self.update_running_stats = True
+        self.group = None
         self.weight = nn.Parameter(torch.ones(n, device=device))
         self.bias = nn.Parameter(torch.zeros(n, device=device))
         self.register_buffer("running_mean", torch.zeros(n, device=device))
@@ -120,16 +130,18 @@ class _BatchNorm(nn.Module):
         if self.training:
             axes = [i for i in range(x.dim()) if i != 1]
             xs = x if x.dtype == torch.float64 else x.float()
-            mean = xs.mean(dim=axes)
-            var = torch.clamp(xs.square().mean(dim=axes) - mean.square(),
-                              min=0.0)
+            sums = torch.stack([
+                xs.sum(dim=axes), xs.square().sum(dim=axes),
+                xs.new_full((x.shape[1],), x.numel() // x.shape[1])])
+            s, s2, n = all_reduce_sum(sums, self.group).unbind(0)
+            mean = s / n
+            var = torch.clamp(s2 / n - mean.square(), min=0.0)
             if self.update_running_stats:
                 with torch.no_grad():
-                    n = x.numel() // x.shape[1]
                     m = self.momentum
                     self.running_mean.mul_(1 - m).add_(m * mean)
                     self.running_var.mul_(1 - m).add_(
-                        m * (var * (n / max(n - 1, 1))))
+                        m * (var * (n / torch.clamp(n - 1, min=1))))
                     self.num_batches_tracked.add_(1)
             mean, var = mean.to(x.dtype), var.to(x.dtype)
         else:
@@ -186,6 +198,11 @@ class StochasticLayer(nn.Module):
     def __init__(self):
         super().__init__()
         self.generator = None
+        # (dim, index, count): this rank's part of a batch split over a
+        # process group (set_data_group); a mask is drawn at the global
+        # shape and the rank keeps its part, so every rank's generator
+        # advances alike and the ranks together draw the one-rank mask
+        self.shard = None
 
     def _train_generator(self):
         if self.generator is None:
@@ -205,7 +222,8 @@ class _DropoutBase(StochasticLayer):
     def forward(self, x):
         if not self.training:
             return x
-        return type(self)._fn(x, self.p, self._train_generator())
+        return type(self)._fn(x, self.p, self._train_generator(),
+                              shards=(self.shard,) if self.shard else ())
 
 
 class Dropout(_DropoutBase):
@@ -222,6 +240,21 @@ def set_dropout_generator(model, generator):
     for m in model.modules():
         if isinstance(m, StochasticLayer):
             m.generator = generator
+
+
+def set_data_group(model, group):
+    """Hand ``group``, the process group over which ``model``'s batches are
+    split by rows (parallel/mesh.py), to every BatchNorm (statistics over
+    the global batch) and every StochasticLayer (masks drawn at the global
+    shape); None undoes it. Like ``SyncBatchNorm.convert_sync_batchnorm``,
+    the group lives on the layers, not in a global."""
+    shard = (None if group is None
+             else (0, group_rank(group), group_size(group)))
+    for m in model.modules():
+        if isinstance(m, _BatchNorm):
+            m.group = group
+        elif isinstance(m, StochasticLayer):
+            m.shard = shard
 
 
 class GlobalPooling2D(nn.Module):

@@ -19,6 +19,16 @@ association differs from the host path by about 1e-6.
 
 Memory: full-resolution cross-subject NTU (~40k clips x 24 x 256x256x3
 uint8) is ~188 GB, past one card; resident mode is for stores that fit.
+
+Under a data group (parallel/mesh.py) the store is replicated on every
+rank by default, and each rank reads its rows of a batch with K2.
+``ResidentNTUStore(shard=group)`` splits the sample axis instead: rank r
+holds samples [r*m, (r+1)*m), m = ceil(n/D), zero-padded. A batch is then
+read by the masked local gather and byte SUM of
+``parallel/mesh.py::gather_rows`` over the group's whole plan (the plan's
+rows are all-gathered first), the rank keeps its rows, and K1 normalizes
+them: the fused gather of K2 reads one device's store only, so it is off
+on a sharded store (with the JAX package's warning).
 """
 
 from __future__ import annotations
@@ -31,6 +41,7 @@ import torch
 
 from mfas_tpu_torch.data import ntu as ntu_data
 from mfas_tpu_torch.data.loader import ResumableRng
+from mfas_tpu_torch.parallel import mesh as pm
 
 
 def _unwrap(transform):
@@ -83,9 +94,10 @@ def plan_temporal(transform, n_frames, ske_valid, rng=None):
 
 
 class ResidentNTUStore:
-    """A packed split copied to ``device`` once."""
+    """A packed split copied to ``device`` once: whole, or under ``shard``
+    (a process group) this rank's part of its samples."""
 
-    def __init__(self, packed_dir, device, args=None):
+    def __init__(self, packed_dir, device, args=None, shard=None):
         with open(os.path.join(packed_dir, "meta.json")) as f:
             self.meta = json.load(f)
         self.modality = (getattr(args, "modality", "both")
@@ -94,10 +106,14 @@ class ResidentNTUStore:
         self.labels = np.load(os.path.join(packed_dir, "labels.npy"))
         self.n = len(self.labels)
         self.n_frames = int(self.meta["frames"])
+        self.group = shard
+        self.sharded = shard is not None
 
         def place(name):
-            arr = np.load(os.path.join(packed_dir, name))
-            return torch.from_numpy(arr).to(device)
+            arr = np.load(os.path.join(packed_dir, name), mmap_mode="r")
+            if self.sharded:
+                arr = pm.split_rows(arr, shard)
+            return torch.from_numpy(np.array(arr)).to(device)
 
         self.rgb_dev = (place("rgb.npy")
                         if self.modality in ("rgb", "both") else None)
@@ -174,7 +190,7 @@ class ResidentLoader(ResumableRng):
 
 
 def make_resident_prep(no_norm=False, fuse_gather=False,
-                       compute_dtype=None):
+                       compute_dtype=None, store=None):
     """Engine batch_prep: store gather + temporal resample + normalize on
     the store's device. Clips come out in ``compute_dtype`` (float32 when
     None): under bf16 the kernel rounds the f32 affine once and writes bf16,
@@ -184,26 +200,54 @@ def make_resident_prep(no_norm=False, fuse_gather=False,
     fuse_gather=True reads the clips straight out of the store with
     ``u8_gather_normalize`` (kernel K2 on the card: the gathered uint8 clip
     is never written); False gathers with torch indexing and normalizes with
-    ``u8_normalize`` (K1)."""
+    ``u8_normalize`` (K1).
+
+    store: the ResidentNTUStore. On a store sharded over the data group
+    (``store.sharded``), whose rows each batch holds, the batch is read with
+    ``gather_rows`` and normalized by K1; ``fuse_gather`` is then turned off
+    with a warning."""
     from mfas_tpu_torch.ops.input_kernels import (u8_gather_normalize,
                                                   u8_normalize)
 
     mean, std = ntu_data.IMAGENET_MEAN, ntu_data.IMAGENET_STD
     out_dtype = compute_dtype or torch.float32
+    sharded = bool(store is not None and store.sharded)
+    if fuse_gather and sharded:
+        import warnings
+        warnings.warn("fuse_gather=True needs an unsharded store (the fused "
+                      "kernel reads one device's store) — falling back to "
+                      "the gather + K1 for this sharded store")
+        fuse_gather = False
+    group = store.group if sharded else None
+
+    def gathered(local, idx, index=None):
+        """The rank's rows of a sharded store's batch: the group's plan,
+        the masked gather + byte SUM, then this rank's rows."""
+        got = pm.gather_rows(local, idx, group, index)
+        return got[pm.row_slice(got.shape[0], group)]
 
     def prep(batch):
         batch = dict(batch)
         idx = batch.pop("_idx").long()
         rgb_store = batch.pop("_rgb_store", None)
         ske_store = batch.pop("_ske_store", None)
+        if sharded:
+            idx_all = pm.all_gather_rows(idx, group)
         if rgb_store is not None:
             rgb_t = batch.pop("rgb_t").long()
             if fuse_gather:
                 batch["rgb"] = u8_gather_normalize(rgb_store, idx, rgb_t,
                                                    mean, std, out_dtype)
             else:
-                batch["rgb"] = u8_normalize(rgb_store[idx[:, None], rgb_t],
-                                            mean, std, out_dtype=out_dtype)
+                if sharded:
+                    t_all = pm.all_gather_rows(rgb_t, group)
+                    clips = gathered(rgb_store, idx_all,
+                                     lambda st, rows: st[rows[:, None],
+                                                         t_all])
+                else:
+                    clips = rgb_store[idx[:, None], rgb_t]
+                batch["rgb"] = u8_normalize(clips, mean, std,
+                                            out_dtype=out_dtype)
         else:
             batch["rgb"] = torch.zeros((idx.shape[0], 1),
                                        device=idx.device)
@@ -211,7 +255,8 @@ def make_resident_prep(no_norm=False, fuse_gather=False,
             lo = batch.pop("ske_lo").long()[:, None, :, None, None]
             hi = batch.pop("ske_hi").long()[:, None, :, None, None]
             w = batch.pop("ske_w")[:, None, :, None, None]
-            s = ske_store[idx]                     # (B, 3, S, 25, 2)
+            s = (gathered(ske_store, idx_all) if sharded
+                 else ske_store[idx])              # (B, 3, S, 25, 2)
             s = (torch.take_along_dim(s, lo, dim=2) * (1.0 - w)
                  + torch.take_along_dim(s, hi, dim=2) * w)
             if not no_norm:

@@ -12,7 +12,10 @@ None and torch's Adam never steps them. An op that DropPath dropped gets an
 all-zero gradient, and ``adam_step_skip_zero_grads`` leaves its value,
 moments and step count as they were: together the JAX engine's
 ``adam_skip_disconnected`` with per-leaf steps. Dropout and DropPath draw
-from the engine's generator, seeded at ``seed + epoch``.
+from the engine's generator, seeded at ``seed + epoch``; under a data
+``group`` every rank seeds it alike, so DropPath's one draw per forward
+agrees across ranks (dropout masks are drawn at the global batch shape),
+and the zero-gradient skip sees the reduced gradient.
 """
 
 from __future__ import annotations
@@ -27,9 +30,9 @@ from mfas_tpu_torch.engine.classifier import WEIGHT_DECAY, ClassifierEngine
 class CifarEngine(ClassifierEngine):
     AUX_WEIGHT = 0.4
 
-    def __init__(self, model, device, use_intermediate=False):
+    def __init__(self, model, device, use_intermediate=False, group=None):
         super().__init__(model, device, input_keys=("image",),
-                         initial_best_acc=-1.0)
+                         initial_best_acc=-1.0, group=group)
         self.use_intermediate = use_intermediate
 
     def make_optimizer(self):
@@ -42,10 +45,11 @@ class CifarEngine(ClassifierEngine):
     def _forward(self, batch):
         out, iout = self.model(batch["image"])
         label = batch["label"].long()
-        w = batch["_mask"]
-        loss = F.cross_entropy(out, label, w)
+        w, count = batch["_mask"], batch.get("_count")
+        loss = F.cross_entropy(out, label, w, count)
         if self.use_intermediate:
-            loss = loss + self.AUX_WEIGHT * F.cross_entropy(iout, label, w)
+            loss = loss + self.AUX_WEIGHT * F.cross_entropy(iout, label, w,
+                                                            count)
         preds = torch.argmax(out, dim=1)
         corrects = ((preds == label).to(w.dtype) * w).sum()
         return loss, corrects, out

@@ -32,6 +32,16 @@ Dropout draws from ``self.generator``, on the engine's device, seeded per
 epoch at ``seed + epoch`` (``train_track_acc``'s ``seed``, by default
 ``TRAIN_SEED_OFFSET``: apart from the found CLIs' init seed 0), and the same
 at an epoch whether the run was resumed or not.
+
+``group`` (parallel/mesh.py): data parallelism over a process group, one
+process per GPU. Each rank takes its rows of every global batch on the host
+(``place_batch``); its loss is its share of the global masked mean (the
+global valid count rides in the batch as ``_count``), the gradients are
+SUMmed over the group before the optimizer step, BatchNorm statistics and
+dropout masks are those of the global batch (``set_data_group``), and the
+epoch sums are reduced, so every rank prints the numbers of the one-rank
+run. Only rank 0 writes the train state; a resume must resolve the same
+epoch on every rank. An EvalRecord holds the rank's own rows.
 """
 
 from __future__ import annotations
@@ -45,9 +55,10 @@ import numpy as np
 import torch
 
 from mfas_tpu_torch.core import functional as F
-from mfas_tpu_torch.core.layers import set_dropout_generator
+from mfas_tpu_torch.core.layers import set_data_group, set_dropout_generator
 from mfas_tpu_torch.core.optim import make_adam, set_lr
 from mfas_tpu_torch.data.loader import prefetch_to_device, to_device
+from mfas_tpu_torch.parallel import mesh as pm
 
 # the offset between a net's init seed and its dropout seed
 # (mfas_tpu/search/trainers.py::TRAIN_SEED_OFFSET), so the training stream
@@ -59,10 +70,20 @@ TRAIN_SEED_OFFSET = 1_000_003
 WEIGHT_DECAY = 1e-4
 
 
-def place_batch(batch, device):
+def place_batch(batch, device, group=None):
     """Host batch -> tensors on ``device``; tensors already placed (the
-    resident store riding along in its batches) pass through untouched."""
-    return {k: to_device(v, device) for k, v in batch.items()}
+    resident store riding along in its batches) pass through untouched.
+    Under a data ``group`` the rank's rows are taken on the host first, and
+    ``_count`` holds the global batch's valid rows (the loss normalizer).
+    Collective-free: it runs on the prefetch thread."""
+    if group is not None:
+        count = np.sum(batch["_mask"], keepdims=True, dtype=np.float32)
+        batch = pm.shard_batch(batch, group)
+        batch["_count"] = count
+    placed = {k: to_device(v, device) for k, v in batch.items()}
+    if group is not None:
+        placed["_count"] = placed["_count"].reshape(())
+    return placed
 
 
 def set_trainable(model, prefixes=None):
@@ -110,8 +131,10 @@ class TrainRecord:
 class ClassifierEngine:
     def __init__(self, model, device, multitask=False,
                  input_keys=("image", "audio"), batch_prep=None,
-                 compute_dtype=None, remat=False, initial_best_acc=0.0):
+                 compute_dtype=None, remat=False, initial_best_acc=0.0,
+                 group=None):
         self.model = model
+        self.group = group
         self.device = torch.device(device)
         self.multitask = multitask
         self.input_keys = tuple(input_keys)
@@ -122,6 +145,7 @@ class ClassifierEngine:
         self.initial_best_acc = initial_best_acc
         self.generator = torch.Generator(device=self.device)
         set_dropout_generator(model, self.generator)
+        set_data_group(model, group)
         if remat:
             from mfas_tpu_torch.core.remat import enable_remat
             enable_remat(model.remat_segments())
@@ -148,14 +172,14 @@ class ClassifierEngine:
             out = (tuple(o.float() for o in out)
                    if isinstance(out, (tuple, list)) else out.float())
         label = batch["label"].long()
-        w = batch["_mask"]
+        w, count = batch["_mask"], batch.get("_count")
         if self.multitask:
-            loss = sum(F.cross_entropy(o, label, w) for o in out)
+            loss = sum(F.cross_entropy(o, label, w, count) for o in out)
             preds = torch.argmax(sum(out), dim=1)
         else:
             if isinstance(out, (tuple, list)):
                 out = out[0]
-            loss = F.cross_entropy(out, label, w)
+            loss = F.cross_entropy(out, label, w, count)
             preds = torch.argmax(out, dim=1)
         corrects = ((preds == label).to(w.dtype) * w).sum()
         return loss, corrects, out
@@ -171,6 +195,7 @@ class ClassifierEngine:
         loss, corrects, _ = self._forward(batch)
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        pm.all_reduce_grads(self.model.parameters(), self.group)
         set_lr(optimizer, eta)
         self._optimizer_step(optimizer)
         return loss.detach(), corrects.detach()
@@ -179,7 +204,7 @@ class ClassifierEngine:
         """(n_valid, device batch) pairs, one batch ahead."""
         def place(batch):
             return (float(np.sum(batch["_mask"])),
-                    place_batch(batch, self.device))
+                    place_batch(batch, self.device, self.group))
 
         return prefetch_to_device(loader, place)
 
@@ -199,15 +224,22 @@ class ClassifierEngine:
         The call's TrainRecord is appended to ``self.train_records``."""
         model = self.model
         set_trainable(model, trainable_prefixes)
+        pm.replicate(model.state_dict().values(), self.group)
         optimizer = self.make_optimizer()
         best_acc = self.initial_best_acc
         best_state = snapshot(model)
         start_epoch = 0
-        if resume and state_path and os.path.exists(state_path):
+        found_state = bool(state_path and os.path.exists(state_path))
+        if resume:
+            # a state file only some processes see would start them over
+            # while the others skip ahead: the group would hang
+            pm.require_resume_agreement((int(found_state),))
+        if resume and found_state:
             from mfas_tpu_torch.runtime.train_state import load_train_state
             st = load_train_state(state_path, model=model,
                                   optimizer=optimizer, scheduler=scheduler)
             best_state, best_acc = st["best_state"], st["best_acc"]
+            pm.require_resume_agreement((int(st["epoch"]),))
             start_epoch = st["epoch"] + 1
             if print_loss:
                 print(f"Resuming training at epoch {start_epoch} "
@@ -236,9 +268,11 @@ class ClassifierEngine:
                 if train:
                     record.train_seconds += time.perf_counter() - t0
                     record.train_clips += int(dataset_sizes[phase])
-                # one device->host copy per phase
-                ls = torch.stack(losses).tolist() if losses else []
-                cs = torch.stack(corrects).tolist() if corrects else []
+                # one device->host copy (and one reduction) per phase
+                ls = (pm.reduce_sum(torch.stack(losses), self.group).tolist()
+                      if losses else [])
+                cs = (pm.reduce_sum(torch.stack(corrects), self.group)
+                      .tolist() if corrects else [])
                 epoch_loss = (sum(l * n for l, n in zip(ls, n_valid))
                               / dataset_sizes[phase])
                 epoch_acc = sum(cs) / dataset_sizes[phase]
@@ -277,7 +311,8 @@ class ClassifierEngine:
                 logits.append(out[0] if isinstance(out, (tuple, list))
                               else out)
                 masks.append(batch["_mask"])
-            total = float(torch.stack(corrects).sum()) if corrects else 0.0
+            total = (float(pm.reduce_sum(torch.stack(corrects).sum(),
+                                         self.group)) if corrects else 0.0)
         seconds = time.perf_counter() - t0
         acc = total / dataset_size
         self.last_eval = EvalRecord(acc=acc, fused_logits=logits, masks=masks,

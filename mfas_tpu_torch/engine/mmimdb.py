@@ -18,6 +18,13 @@ generator, seeded at ``seed + epoch`` (``TRAIN_SEED_OFFSET`` by default,
 apart from the CLI's init seed 0). Batches are collated and placed one
 ahead (``prefetch_to_device``); per-batch losses and predictions stay on
 the device until their phase ends.
+
+``group`` (parallel/mesh.py): data parallelism as ``ClassifierEngine``'s
+(rows per rank, the global masked mean, gradients SUMmed before Adam,
+BatchNorm and dropout over the global batch, the epoch loss reduced); the
+predictions and logits of a dev or test pass are all-gathered before the
+samples-F1, which every rank then computes over the whole split, as the JAX
+package's replicated eval output.
 """
 
 from __future__ import annotations
@@ -29,13 +36,14 @@ import numpy as np
 import torch
 
 from mfas_tpu_torch.core import functional as F
-from mfas_tpu_torch.core.layers import set_dropout_generator
+from mfas_tpu_torch.core.layers import set_data_group, set_dropout_generator
 from mfas_tpu_torch.core.optim import make_adam, set_lr
 from mfas_tpu_torch.data.loader import prefetch_to_device
 from mfas_tpu_torch.data.mm_imdb import samples_f1
 from mfas_tpu_torch.engine.classifier import (TRAIN_SEED_OFFSET, EvalRecord,
                                               TrainRecord, _sync, place_batch,
                                               set_trainable, snapshot)
+from mfas_tpu_torch.parallel import mesh as pm
 
 
 class MMIMDBEngine:
@@ -46,8 +54,9 @@ class MMIMDBEngine:
     ``last_eval``."""
 
     def __init__(self, model, device, pos_weight=2.0, weight_decay=1e-4,
-                 th_fscore=0.3, stable_bce=False):
+                 th_fscore=0.3, stable_bce=False, group=None):
         self.model = model
+        self.group = group
         self.device = torch.device(device)
         self.pos_weight = pos_weight
         self.weight_decay = weight_decay
@@ -55,6 +64,7 @@ class MMIMDBEngine:
         self.stable_bce = stable_bce
         self.generator = torch.Generator(device=self.device)
         set_dropout_generator(model, self.generator)
+        set_data_group(model, group)
         self.train_records = []
         self.last_eval = None
 
@@ -66,10 +76,11 @@ class MMIMDBEngine:
     def _train_step(self, batch, optimizer, eta):
         per = F.weighted_bce_elements(self._forward(batch), batch["label"],
                                       self.pos_weight, stable=self.stable_bce)
-        w = batch["_mask"]
-        loss = (per.mean(dim=1) * w).sum() / torch.clamp(w.sum(), min=1.0)
+        loss = F.masked_mean(per.mean(dim=1), batch["_mask"],
+                             batch.get("_count"))
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        pm.all_reduce_grads(self.model.parameters(), self.group)
         set_lr(optimizer, eta)
         optimizer.step()
         return loss.detach()
@@ -79,7 +90,8 @@ class MMIMDBEngine:
         ahead: the F1 reads per-sample rows on the host."""
         def place(batch):
             return (float(np.sum(batch["_mask"])), batch["label"],
-                    batch["_mask"], place_batch(batch, self.device))
+                    batch["_mask"], place_batch(batch, self.device,
+                                                self.group))
 
         return prefetch_to_device(loader, place)
 
@@ -90,7 +102,9 @@ class MMIMDBEngine:
         preds, labels, logits, masks = [], [], [], []
         with torch.inference_mode():
             for _, label, mask, batch in self._prefetched(loader):
-                out = self._forward(batch)
+                # the split's logits on every rank (label and mask are the
+                # global batch's host arrays)
+                out = pm.all_gather_rows(self._forward(batch), self.group)
                 preds.append(torch.sigmoid(out) > self.th_fscore)
                 keep = mask > 0
                 labels.append(label[keep])
@@ -112,6 +126,7 @@ class MMIMDBEngine:
         ``init_f1``)."""
         model = self.model
         set_trainable(model, trainable_prefixes)
+        pm.replicate(model.state_dict().values(), self.group)
         optimizer = make_adam(model.parameters(), self.weight_decay)
         best_f1 = init_f1
         best = snapshot(model)
@@ -137,7 +152,8 @@ class MMIMDBEngine:
                 _sync(self.device)
                 record.train_seconds += time.perf_counter() - t0
                 record.train_clips += int(dataset_sizes["train"])
-                ls = torch.stack(losses).tolist() if losses else []
+                ls = (pm.reduce_sum(torch.stack(losses), self.group).tolist()
+                      if losses else [])
                 epoch_loss = (sum(l * n for l, n in zip(ls, n_valid))
                               / dataset_sizes["train"])
                 record.epochs.append(dict(phase="train", epoch=epoch,

@@ -17,8 +17,10 @@ The backbones start from --rgb_cp/--audio_cp in --checkpointdir when given
 their initial weights. Options: --save_checkpoint, --profile_dir D.
 
 From the command line the device is CUDA and the run fails without it;
-``main(argv, device="cpu")`` runs the same path on the CPU. Flags whose
-feature is not ported yet stop the run and name their ROADMAP.md item.
+``main(argv, device="cpu")`` runs the same path on the CPU.
+``--use_dataparallel`` under ``torchrun`` or the ``--dist_*`` trio (one
+process per GPU) splits every batch by rows over the processes;
+only process 0 writes files (parallel/mesh.py).
 """
 
 import argparse
@@ -28,8 +30,9 @@ import time
 
 import numpy as np
 
-from mfas_tpu_torch.runtime.cli import (MULTI_GPU, add_dist_args, cli_device,
-                                        dist_requested, reject_unported)
+from mfas_tpu_torch.parallel import mesh as pm
+from mfas_tpu_torch.parallel.mesh import add_dist_args
+from mfas_tpu_torch.runtime.cli import cli_device
 
 
 def parse_args(argv=None):
@@ -122,16 +125,15 @@ def main(argv=None, device=None):
     """-> main_found_ntu.py::FoundRun."""
     from mfas_tpu_torch.engine.classifier import ClassifierEngine
     from mfas_tpu_torch.main_found_ntu import FoundRun, train_model
+    from mfas_tpu_torch.parallel.mesh import is_primary_process
     from mfas_tpu_torch.runtime import checkpoint as ckpt
     from mfas_tpu_torch.runtime.profiler import maybe_profile
 
     print("Training found AV-MNIST network")
     args = parse_args(argv)
-    reject_unported([
-        (args.use_dataparallel, "--use_dataparallel", MULTI_GPU),
-        (dist_requested(args), "--dist_*", MULTI_GPU),
-    ])
-    device = cli_device(device, "mfas_tpu_torch.main_found_avmnist")
+    device = cli_device(device, "mfas_tpu_torch.main_found_avmnist", args)
+    pm.initialize_from_args(args, device)
+    group = pm.data_group_from_args(args)
     print("The configuration of this run is:")
     print(args)
 
@@ -152,7 +154,7 @@ def main(argv=None, device=None):
 
     dataloaders = get_dataloaders(args)
     engine = ClassifierEngine(model, device, multitask=args.multitask,
-                              input_keys=("image", "audio"))
+                              input_keys=("image", "audio"), group=group)
     start_time = time.time()
     with maybe_profile(args.profile_dir, device):
         modelacc, peaks = train_model(engine, model, configuration,
@@ -165,7 +167,7 @@ def main(argv=None, device=None):
     print('Model Acc: {}'.format(modelacc))
 
     saved = None
-    if args.save_checkpoint:
+    if args.save_checkpoint and is_primary_process():
         saved = checkpoint_filename(args, configuration, modelacc)
         ckpt.save(model.state_dict(), saved)
         print('Saved ' + saved)

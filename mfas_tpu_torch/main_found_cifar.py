@@ -18,8 +18,10 @@ JAX CLI's name ``cifar_micro_<acc>.checkpoint`` in --checkpointdir),
 --profile_dir D.
 
 From the command line the device is CUDA and the run fails without it;
-``main(argv, device="cpu")`` runs the same path on the CPU. Flags whose
-feature is not ported yet stop the run and name their ROADMAP.md item.
+``main(argv, device="cpu")`` runs the same path on the CPU.
+``--use_dataparallel`` under ``torchrun`` or the ``--dist_*`` trio (one
+process per GPU) splits every batch by rows over the processes;
+only process 0 writes files (parallel/mesh.py).
 """
 
 import argparse
@@ -28,8 +30,9 @@ import time
 
 import numpy as np
 
-from mfas_tpu_torch.runtime.cli import (MULTI_GPU, add_dist_args, cli_device,
-                                        dist_requested, reject_unported)
+from mfas_tpu_torch.parallel import mesh as pm
+from mfas_tpu_torch.parallel.mesh import add_dist_args
+from mfas_tpu_torch.runtime.cli import cli_device
 
 
 def parse_args(argv=None):
@@ -111,23 +114,23 @@ def main(argv=None, device=None):
     from mfas_tpu_torch.core.sched import LRCosineAnnealingScheduler
     from mfas_tpu_torch.engine.cifar import CifarEngine
     from mfas_tpu_torch.main_found_ntu import FoundRun, train_phase
+    from mfas_tpu_torch.parallel.mesh import is_primary_process
     from mfas_tpu_torch.runtime import checkpoint as ckpt
     from mfas_tpu_torch.runtime.profiler import maybe_profile
 
     print("Training found CIFAR micro-cell network")
     args = parse_args(argv)
-    reject_unported([
-        (args.use_dataparallel, "--use_dataparallel", MULTI_GPU),
-        (dist_requested(args), "--dist_*", MULTI_GPU),
-    ])
-    device = cli_device(device, "mfas_tpu_torch.main_found_cifar")
+    device = cli_device(device, "mfas_tpu_torch.main_found_cifar", args)
+    pm.initialize_from_args(args, device)
+    group = pm.data_group_from_args(args)
     print("The configuration of this run is:")
     print(args)
 
     model = build_model(args, parse_conf(args.conf), device)
     loaders = get_dataloaders(args)
     sizes = {k: v.dataset_size for k, v in loaders.items()}
-    engine = CifarEngine(model, device, use_intermediate=args.use_intermediate)
+    engine = CifarEngine(model, device, use_intermediate=args.use_intermediate,
+                         group=group)
     sched = LRCosineAnnealingScheduler(args.eta_max, args.eta_min, args.Ti,
                                        args.Tm, sizes["train"] / args.batchsize)
     start = time.time()
@@ -145,7 +148,7 @@ def main(argv=None, device=None):
     print('Model Acc: {}'.format(test_acc))
 
     saved = None
-    if args.save_checkpoint:
+    if args.save_checkpoint and is_primary_process():
         saved = os.path.join(args.checkpointdir,
                              f"cifar_micro_{test_acc:.4f}.checkpoint")
         ckpt.save(model.state_dict(), saved)

@@ -17,16 +17,19 @@ vgg19 weights into the trunk; ``--central_only`` trains the central
 ``mmimdb_<model>_<f1>.checkpoint``.
 
 From the command line the device is CUDA and the run fails without it;
-``main(argv, device="cpu")`` runs the same path on the CPU. Flags whose
-feature is not ported yet stop the run and name their ROADMAP.md item.
+``main(argv, device="cpu")`` runs the same path on the CPU.
+``--use_dataparallel`` under ``torchrun`` or the ``--dist_*`` trio (one
+process per GPU) splits every batch by rows over the processes;
+only process 0 writes files (parallel/mesh.py).
 """
 
 import argparse
 import os
 import time
 
-from mfas_tpu_torch.runtime.cli import (MULTI_GPU, add_dist_args, cli_device,
-                                        dist_requested, reject_unported)
+from mfas_tpu_torch.parallel import mesh as pm
+from mfas_tpu_torch.parallel.mesh import add_dist_args
+from mfas_tpu_torch.runtime.cli import cli_device
 
 
 def parse_args(argv=None):
@@ -119,15 +122,14 @@ def main(argv=None, device=None):
     from mfas_tpu_torch.data.mm_imdb import MM_IMDB, MMIMDBLoader
     from mfas_tpu_torch.engine.mmimdb import MMIMDBEngine
     from mfas_tpu_torch.main_found_ntu import FoundRun
+    from mfas_tpu_torch.parallel.mesh import is_primary_process
     from mfas_tpu_torch.runtime import checkpoint as ckpt
 
     print("Training MM-IMDB fusion network")
     args = parse_args(argv)
-    reject_unported([
-        (args.use_dataparallel, "--use_dataparallel", MULTI_GPU),
-        (dist_requested(args), "--dist_*", MULTI_GPU),
-    ])
-    device = cli_device(device, "mfas_tpu_torch.main_found_mmimdb")
+    device = cli_device(device, "mfas_tpu_torch.main_found_mmimdb", args)
+    pm.initialize_from_args(args, device)
+    group = pm.data_group_from_args(args)
     print("The configuration of this run is:")
     print(args)
 
@@ -156,7 +158,7 @@ def main(argv=None, device=None):
 
     engine = MMIMDBEngine(model, device, pos_weight=args.pos_weight,
                           th_fscore=args.th_fscore,
-                          stable_bce=args.stable_bce)
+                          stable_bce=args.stable_bce, group=group)
     cuda = device.type == "cuda"
     peaks = []
     start = time.time()
@@ -183,7 +185,7 @@ def main(argv=None, device=None):
     print('Model F1: {}'.format(test_f1))
 
     saved = None
-    if args.save_checkpoint:
+    if args.save_checkpoint and is_primary_process():
         saved = os.path.join(args.checkpointdir,
                              f"mmimdb_{args.model}_{test_f1:.4f}.checkpoint")
         ckpt.save(model.state_dict(), saved)

@@ -26,10 +26,17 @@ native reader (the default), streamed as raw uint8 clips normalized on the
 card (``--device_input_normalize``, kernel K1), or copied to the card once
 and gathered there (``--hbm_resident``, kernel K2).
 
+Several GPUs (parallel/mesh.py): ``--use_dataparallel`` under ``torchrun
+--nproc_per_node N`` or with the ``--dist_coordinator host:port
+--dist_num_processes N --dist_process_id i`` trio (one process per GPU)
+splits every batch by rows over the N processes; ``--shard_resident_store``
+splits the ``--hbm_resident`` store's samples over them too (the batch is
+then read by a gather over the group and K1). Every process prints the same
+numbers; only process 0 writes ``--save_checkpoint`` and the train state.
+
 From the command line the device is CUDA and the run fails without it;
 ``main(argv, device="cpu")`` runs the same path on the CPU with the kernels'
-plain versions. Flags whose feature is not ported yet stop the run and name
-their ROADMAP.md item.
+plain versions.
 """
 
 import argparse
@@ -40,8 +47,9 @@ import time
 
 import numpy as np
 
-from mfas_tpu_torch.runtime.cli import (MULTI_GPU, add_dist_args, cli_device,
-                                        dist_requested, reject_unported)
+from mfas_tpu_torch.parallel import mesh as pm
+from mfas_tpu_torch.parallel.mesh import add_dist_args
+from mfas_tpu_torch.runtime.cli import cli_device
 
 
 def parse_args(argv=None):
@@ -160,19 +168,14 @@ INIT_SEED = 0
 
 
 def _reject_unported(args):
-    """Stop on a flag whose feature the port does not have yet."""
-    reject_unported([
-        (args.use_dataparallel, "--use_dataparallel", MULTI_GPU),
-        (dist_requested(args), "--dist_*", MULTI_GPU),
-        (args.shard_resident_store, "--shard_resident_store", MULTI_GPU),
-    ])
+    """Stop on a flag whose feature the port does not carry."""
     if args.conv_channels_last:
         raise SystemExit("--conv_channels_last is a TPU convolution layout "
                          "toggle of the JAX package; mfas_tpu_torch does not "
                          "carry it (ROADMAP.md §1, 'Not ported')")
 
 
-def get_dataloaders(args, device):
+def get_dataloaders(args, device, group=None):
     from mfas_tpu_torch.data import ntu as d
     from mfas_tpu_torch.data.loader import MapLoader
 
@@ -185,9 +188,10 @@ def get_dataloaders(args, device):
                              'one with mfas_tpu_torch.tools.pack_ntu)')
         from mfas_tpu_torch.data.resident import (ResidentLoader,
                                                   ResidentNTUStore)
+        shard = group if args.shard_resident_store else None
         return {k: ResidentLoader(
             ResidentNTUStore(os.path.join(args.packed_datadir, k), device,
-                             args=args),
+                             args=args, shard=shard),
             args.batchsize, transform=(tfm_tra if k == 'train' else tfm_val),
             shuffle=(k == 'train'))
             for k in ('train', 'dev', 'test')}
@@ -226,11 +230,13 @@ def build_model(args, configuration, device):
         generator=torch.Generator().manual_seed(INIT_SEED))
 
 
-def make_engine(model, args, device):
+def make_engine(model, args, device, group=None, store=None):
     """The classifier engine with this run's batch prep (K1 or K2, in the
-    compute dtype), precision and remat. Host-normalized clips (raw AVI or
-    the packed store's default) are float32: the prep only casts them, and
-    K1 launches only on --device_input_normalize's uint8 clips."""
+    compute dtype), precision, remat and data group. Host-normalized clips
+    (raw AVI or the packed store's default) are float32: the prep only
+    casts them, and K1 launches only on --device_input_normalize's uint8
+    clips. ``store``: a resident split's store (a sharded one turns K2
+    off)."""
     import torch
 
     from mfas_tpu_torch.engine.classifier import ClassifierEngine
@@ -240,7 +246,8 @@ def make_engine(model, args, device):
         from mfas_tpu_torch.data.resident import make_resident_prep
         batch_prep = make_resident_prep(no_norm=args.no_norm,
                                         fuse_gather=True,
-                                        compute_dtype=compute_dtype)
+                                        compute_dtype=compute_dtype,
+                                        store=store)
     else:
         if args.device_input_normalize and not args.packed_datadir:
             print('WARNING: --device_input_normalize needs --packed_datadir '
@@ -250,7 +257,8 @@ def make_engine(model, args, device):
         batch_prep = make_device_normalize_prep(compute_dtype)
     return ClassifierEngine(model, device, multitask=args.multitask,
                             input_keys=("rgb", "ske"), batch_prep=batch_prep,
-                            compute_dtype=compute_dtype, remat=args.remat)
+                            compute_dtype=compute_dtype, remat=args.remat,
+                            group=group)
 
 
 def train_phase(engine, what, *args, **kw):
@@ -350,13 +358,16 @@ class FoundRun:
 
 
 def main(argv=None, device=None):
+    from mfas_tpu_torch.parallel.mesh import is_primary_process
     from mfas_tpu_torch.runtime import checkpoint as ckpt
     from mfas_tpu_torch.runtime.profiler import maybe_profile
 
     print("Training found NTU network")
     args = parse_args(argv)
     _reject_unported(args)
-    device = cli_device(device, "mfas_tpu_torch.main_found_ntu")
+    device = cli_device(device, "mfas_tpu_torch.main_found_ntu", args)
+    pm.initialize_from_args(args, device)
+    group = pm.data_group_from_args(args)
     print("The configuration of this run is:")
     print(args)
 
@@ -374,8 +385,9 @@ def main(argv=None, device=None):
         ckpt.load_backbone(os.path.join(args.checkpointdir, args.rgb_cp),
                            model.rgbnet, random_ok=args.random_backbones)
 
-    dataloaders = get_dataloaders(args, device)
-    engine = make_engine(model, args, device)
+    dataloaders = get_dataloaders(args, device, group)
+    engine = make_engine(model, args, device, group,
+                         getattr(dataloaders["train"], "store", None))
     start_time = time.time()
     with maybe_profile(args.profile_dir, device):
         modelacc, peaks = train_model(engine, model, configuration,
@@ -389,7 +401,7 @@ def main(argv=None, device=None):
     print('Model Acc: {}'.format(modelacc))
 
     saved = None
-    if args.save_checkpoint:
+    if args.save_checkpoint and is_primary_process():
         saved = checkpoint_filename(args, configuration, modelacc)
         ckpt.save(model.state_dict(), saved)
         print('Saved ' + saved)

@@ -22,14 +22,18 @@ both numpy's and Python's RNGs (the random search draws depths from the
 latter).
 
 From the command line the device is CUDA and the run fails without it;
-``main(argv, device="cpu")`` runs the same path on the CPU. Flags whose
-feature is not ported yet stop the run and name their ROADMAP.md item.
+``main(argv, device="cpu")`` runs the same path on the CPU.
+``--use_dataparallel`` under ``torchrun`` or the ``--dist_*`` trio (one
+process per GPU) splits every batch by rows over the processes;
+``--shard_feature_bank`` with ``--cache_features`` splits the bank's rows
+over them; only process 0 writes files (parallel/mesh.py).
 """
 
 import argparse
 
-from mfas_tpu_torch.runtime.cli import (MULTI_GPU, add_dist_args, cli_device,
-                                        dist_requested, reject_unported)
+from mfas_tpu_torch.parallel import mesh as pm
+from mfas_tpu_torch.parallel.mesh import add_dist_args
+from mfas_tpu_torch.runtime.cli import cli_device
 
 
 def parse_args(argv=None):
@@ -131,15 +135,13 @@ def main(argv=None, device=None):
     from mfas_tpu_torch.search.searchers import AVMNISTSearcher
 
     args = parse_args(argv)
-    reject_unported([
-        (args.use_dataparallel, "--use_dataparallel", MULTI_GPU),
-        (dist_requested(args), "--dist_*", MULTI_GPU),
-        (args.shard_feature_bank, "--shard_feature_bank", MULTI_GPU),
-    ])
-    device = cli_device(device, "mfas_tpu_torch.main_searchable_avmnist")
+    device = cli_device(device, "mfas_tpu_torch.main_searchable_avmnist", args)
+    pm.initialize_from_args(args, device)
+    pm.require_shared_seed(args)
+    group = pm.data_group_from_args(args)
     return run_search(args, "AV-MNIST", device,
                       lambda timer: AVMNISTSearcher(
-                          args, device=device,
+                          args, device=device, group=group,
                           jsonl_log=args.jsonl_log or None, timer=timer))
 
 

@@ -18,14 +18,17 @@ weights from each candidate to the next by op type, block and cell.
 step. --seed seeds numpy's and Python's RNGs.
 
 From the command line the device is CUDA and the run fails without it;
-``main(argv, device="cpu")`` runs the same path on the CPU. Flags whose
-feature is not ported yet stop the run and name their ROADMAP.md item.
+``main(argv, device="cpu")`` runs the same path on the CPU.
+``--use_dataparallel`` under ``torchrun`` or the ``--dist_*`` trio (one
+process per GPU) splits every batch by rows over the processes;
+only process 0 writes files (parallel/mesh.py).
 """
 
 import argparse
 
-from mfas_tpu_torch.runtime.cli import (MULTI_GPU, add_dist_args, cli_device,
-                                        dist_requested, reject_unported)
+from mfas_tpu_torch.parallel import mesh as pm
+from mfas_tpu_torch.parallel.mesh import add_dist_args
+from mfas_tpu_torch.runtime.cli import cli_device
 
 
 def parse_args(argv=None):
@@ -75,14 +78,13 @@ def main(argv=None, device=None):
     from mfas_tpu_torch.search.searchers import CifarSearcher
 
     args = parse_args(argv)
-    reject_unported([
-        (args.use_dataparallel, "--use_dataparallel", MULTI_GPU),
-        (dist_requested(args), "--dist_*", MULTI_GPU),
-    ])
-    device = cli_device(device, "mfas_tpu_torch.main_searchable_cifar")
+    device = cli_device(device, "mfas_tpu_torch.main_searchable_cifar", args)
+    pm.initialize_from_args(args, device)
+    pm.require_shared_seed(args)
+    group = pm.data_group_from_args(args)
     return run_search(args, "CIFAR-10", device,
                       lambda timer: CifarSearcher(
-                          args, device=device,
+                          args, device=device, group=group,
                           jsonl_log=args.jsonl_log or None, timer=timer))
 
 

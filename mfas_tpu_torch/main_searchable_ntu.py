@@ -24,14 +24,18 @@ kernel K1 normalizes on the card. The backbones come from
 
 From the command line the device is CUDA and the run fails without it;
 ``main(argv, device="cpu")`` runs the same path on the CPU with the kernels'
-plain versions. Flags whose feature is not ported yet stop the run and name
-their ROADMAP.md item.
+plain versions. ``--use_dataparallel`` under ``torchrun`` or the
+``--dist_*`` trio (one process per GPU) splits every batch by rows over the
+processes; ``--shard_feature_bank`` with ``--cache_features`` splits the
+bank's rows over them; only process 0 writes the search state and the jsonl
+(parallel/mesh.py).
 """
 
 import argparse
 
-from mfas_tpu_torch.runtime.cli import (MULTI_GPU, add_dist_args, cli_device,
-                                        dist_requested, reject_unported)
+from mfas_tpu_torch.parallel import mesh as pm
+from mfas_tpu_torch.parallel.mesh import add_dist_args
+from mfas_tpu_torch.runtime.cli import cli_device
 
 
 def parse_args(argv=None):
@@ -177,26 +181,19 @@ def parse_args(argv=None):
     return parser.parse_args(argv)
 
 
-def _reject_unported(args):
-    """Stop on a flag whose feature the port does not have yet."""
-    reject_unported([
-        (args.use_dataparallel, "--use_dataparallel", MULTI_GPU),
-        (dist_requested(args), "--dist_*", MULTI_GPU),
-        (args.shard_feature_bank, "--shard_feature_bank", MULTI_GPU),
-    ])
-
-
 def main(argv=None, device=None):
     """-> search/searcher.py::SearchRun."""
     from mfas_tpu_torch.search.searcher import run_search
     from mfas_tpu_torch.search.searchers import NTUSearcher
 
     args = parse_args(argv)
-    _reject_unported(args)
-    device = cli_device(device, "mfas_tpu_torch.main_searchable_ntu")
+    device = cli_device(device, "mfas_tpu_torch.main_searchable_ntu", args)
+    pm.initialize_from_args(args, device)
+    pm.require_shared_seed(args)
+    group = pm.data_group_from_args(args)
     return run_search(args, "NTU", device,
                       lambda timer: NTUSearcher(
-                          args, device=device,
+                          args, device=device, group=group,
                           jsonl_log=args.jsonl_log or None, timer=timer))
 
 

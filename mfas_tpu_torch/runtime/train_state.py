@@ -38,6 +38,19 @@ def _cpu(t):
 
 def save_train_state(path, *, model, best_state, optimizer, scheduler, epoch,
                      best_acc):
+    """Write the state (rank 0 alone under a process group: every rank
+    holds the same one, and two writers would race on ``path``); every rank
+    returns once the file is whole."""
+    from mfas_tpu_torch.parallel.mesh import barrier, is_primary_process
+    if is_primary_process():
+        _write_train_state(path, model=model, best_state=best_state,
+                           optimizer=optimizer, scheduler=scheduler,
+                           epoch=epoch, best_acc=best_acc)
+    barrier()
+
+
+def _write_train_state(path, *, model, best_state, optimizer, scheduler,
+                       epoch, best_acc):
     flat = {f"model/{k}": _cpu(v) for k, v in model.state_dict().items()}
     flat.update({f"best/{k}": _cpu(v) for k, v in best_state.items()})
     steps = {}

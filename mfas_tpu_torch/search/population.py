@@ -22,6 +22,22 @@ stay as they are) or, with ``cache_train_features``, once in eval mode into a
 device bank (bf16 or int8) that later epochs and populations gather from.
 The dev split is extracted once in eval mode and kept: as a bank for the
 fused epoch loop, or as a per-batch cache.
+
+Several processes (parallel/mesh.py) lay out as a (pop, data) grid. The
+``data`` group splits every batch by rows: each rank extracts features of
+its rows (train-mode BatchNorm statistics and dropout masks of the global
+batch), its loss is its share of each candidate's global masked mean, the
+gradients are SUMmed over the group, and the heads' masked BatchNorm
+statistics are reduced in two passes ([sum w*h, sum w], then
+sum w*(h - mean)^2). A batch whose size the group does not divide is
+replicated on every rank instead, as the JAX package replicates a leading
+dim the mesh axis does not divide. ``shard_feature_bank`` splits a bank's
+rows over the data group (labels stay whole, so the epoch plans key off the
+true sample count); a batch is then read by ``gather_rows``. The ``pop``
+group splits the candidates (replicated when it does not divide them):
+every pop group trains its part on the same features, and accuracies and
+parameters are all-gathered at the end. Collectives run on the main thread,
+in step order, never on the prefetch thread.
 """
 
 from __future__ import annotations
@@ -37,10 +53,12 @@ import torch
 import torch.nn.functional as TF
 
 from mfas_tpu_torch.core import functional as F
-from mfas_tpu_torch.core.layers import _BatchNorm, set_dropout_generator
+from mfas_tpu_torch.core.layers import (_BatchNorm, set_data_group,
+                                        set_dropout_generator)
 from mfas_tpu_torch.core.optim import make_adam, set_lr
 from mfas_tpu_torch.data.loader import prefetch_to_device, to_device
 from mfas_tpu_torch.fusion.layers import shared_weight_key
+from mfas_tpu_torch.parallel import mesh as pm
 
 # process-wide token source for the loader-keyed feature caches (never
 # reused, unlike id() after garbage collection)
@@ -282,11 +300,14 @@ def inject_shared_states(params, bn_state, confs, spec, state_dict,
 # the population forward, loss and train step
 # --------------------------------------------------------------------------
 def population_forward(spec, params, bn_state, conf, feats_a, feats_b,
-                       train, wmask, generator=None):
+                       train, wmask, generator=None, group=None, shards=()):
     """Every candidate's fusion head over the shared padded taps.
     feats_a: (B, n_taps_a, cmax_a). Returns (logits (P, B, O), new
     bn_state). wmask (B,): validity weights; a ragged final batch repeats a
-    sample, and train-mode BatchNorm statistics cover only the real rows."""
+    sample, and train-mode BatchNorm statistics cover only the real rows.
+    ``group``: the data group whose rows the batch holds (statistics of
+    the global batch); ``shards``: this rank's part of the global (P, B, H)
+    dropout mask (core/functional.py::dropout)."""
     B = feats_a.shape[0]
     P = conf["sel_a"].shape[0]
     H = spec.hidden
@@ -311,10 +332,17 @@ def population_forward(spec, params, bn_state, conf, feats_a, feats_b,
 
         if spec.batchnorm:
             if train:
-                # masked, centred statistics over the real rows
-                cnt = torch.clamp(w.sum(), min=1.0)
-                mean = (h * w).sum(dim=1) / cnt                 # (P, H)
-                var = ((h - mean[:, None]).square() * w).sum(dim=1) / cnt
+                # masked, centred statistics over the real rows (of the
+                # global batch under a group): [sum w*h, sum w], then
+                # sum w*(h - mean)^2
+                sums = pm.all_reduce_sum(torch.cat(
+                    [(h * w).sum(dim=1).reshape(-1), w.sum().reshape(1)]),
+                    group)
+                cnt = torch.clamp(sums[-1], min=1.0)
+                mean = sums[:-1].reshape(P, H) / cnt              # (P, H)
+                var = pm.all_reduce_sum(
+                    ((h - mean[:, None]).square() * w).sum(dim=1),
+                    group) / cnt
                 with torch.no_grad():
                     unbiased = var * (cnt / torch.clamp(cnt - 1.0, min=1.0))
                     new_mean.append(0.9 * bn_state["mean"][:, r]
@@ -328,7 +356,7 @@ def population_forward(spec, params, bn_state, conf, feats_a, feats_b,
                  + params["bn_bias"][:, r, None])
 
         if spec.drpt > 1e-10 and train:
-            h = F.dropout(h, spec.drpt, generator)
+            h = F.dropout(h, spec.drpt, generator, shards)
 
         m = conf["row_mask"][:, r].to(h.dtype)[:, None, None]
         out = m * h + (1.0 - m) * out
@@ -343,43 +371,52 @@ def population_forward(spec, params, bn_state, conf, feats_a, feats_b,
     return logits, new_bn
 
 
-def _masked_ce(logits, label, w):
+def _masked_ce(logits, label, w, count=None):
     """Per-candidate masked mean cross entropy: logits (P, B, O) or (B, O)
-    -> (P,) or scalar."""
+    -> (P,) or scalar; ``count``: the global batch's valid rows."""
     lead = logits.shape[:-1]
     nll = TF.cross_entropy(logits.reshape(-1, logits.shape[-1]),
                            label.expand(lead).reshape(-1),
                            reduction="none").reshape(lead)
-    return (nll * w).sum(dim=-1) / torch.clamp(w.sum(), min=1.0)
+    if count is None:
+        count = w.sum()
+    return (nll * w).sum(dim=-1) / torch.clamp(count, min=1.0)
 
 
 def population_losses(spec, params, bn_state, conf, batch, train,
-                      generator=None):
+                      generator=None, group=None, shards=()):
     """batch: (fa, fb, logits_b, logits_a, label, wmask). Returns
-    (loss (P,), corrects (P,), new bn_state)."""
+    (loss (P,), corrects (P,), new bn_state). Under a data ``group`` the
+    losses are this rank's shares of the global masked means."""
     fa, fb, lb, la, label, wmask = batch
     label = label.long()
     logits, new_bn = population_forward(spec, params, bn_state, conf, fa, fb,
-                                        train, wmask, generator)
+                                        train, wmask, generator, group,
+                                        shards)
     w = wmask.to(logits.dtype)
-    loss = _masked_ce(logits, label, w)
+    count = None if group is None else pm.reduce_sum(w.sum(), group)
+    loss = _masked_ce(logits, label, w, count)
     summed = logits
     if spec.multitask:
-        loss = loss + _masked_ce(lb, label, w) + _masked_ce(la, label, w)
+        loss = (loss + _masked_ce(lb, label, w, count)
+                + _masked_ce(la, label, w, count))
         summed = logits + lb + la
     corrects = ((summed.argmax(dim=-1) == label).to(w.dtype) * w).sum(-1)
     return loss, corrects, new_bn
 
 
 def train_step(spec, params, bn_state, optimizer, conf, batch, lr,
-               generator=None):
+               generator=None, group=None, shards=()):
     """One step of the whole population: the loss summed over candidates,
-    one backward, one Adam step over the stacked parameters. Returns
+    one backward, one Adam step over the stacked parameters (each
+    candidate's gradient SUMmed over the data ``group`` first). Returns
     (new bn_state, loss (P,), corrects (P,)), all on the device."""
     loss, corrects, new_bn = population_losses(spec, params, bn_state, conf,
-                                               batch, True, generator)
+                                               batch, True, generator, group,
+                                               shards)
     optimizer.zero_grad(set_to_none=True)
     loss.sum().backward()
+    pm.all_reduce_grads(params.values(), group)
     set_lr(optimizer, lr)
     optimizer.step()
     return new_bn, loss.detach(), corrects.detach()
@@ -425,6 +462,11 @@ class PopulationTrainer:
 
     timer: optional ``runtime/profiler.py::SectionTimer``; the trainer times
     its "features" and "population steps" sections on it.
+
+    group / pop_group: the data and pop groups of this rank in a (pop,
+    data) grid of processes (``parallel/mesh.py::pop_data_groups``; the
+    CLIs build a data group only). shard_feature_bank: split the banks'
+    rows over the data group.
     """
 
     MAX_DEV_BANK = 50000
@@ -432,7 +474,8 @@ class PopulationTrainer:
     def __init__(self, spec: PopulationSpec, extractor, *, device,
                  input_prep=None, cache_train_features=False,
                  fused_epochs=True, bank_batch=None, int8_bank=False,
-                 timer=None):
+                 timer=None, group=None, pop_group=None,
+                 shard_feature_bank=False):
         self.spec = spec
         self.device = torch.device(device)
         self.generator = torch.Generator(device=self.device)
@@ -450,6 +493,9 @@ class PopulationTrainer:
         self.bank_batch = int(bank_batch) if bank_batch else None
         self.int8_bank = bool(int8_bank)
         self.timer = timer
+        self.group, self.pop_group = group, pop_group
+        self.shard_feature_bank = bool(shard_feature_bank
+                                       and group is not None)
         self._dev_cache = self._dev_cache_key = None
         self._train_bank = self._train_bank_key = None
         self._dev_bank = self._dev_bank_key = None
@@ -457,6 +503,39 @@ class PopulationTrainer:
     def _section(self, name):
         return (self.timer.section(name) if self.timer is not None
                 else contextlib.nullcontext())
+
+    # ----- the data and pop axes
+    def _rows(self, batch_size):
+        """This rank's rows of a batch of ``batch_size``, or None when there
+        is no data group or it does not divide the batch (replicated)."""
+        if self.group is None or batch_size % pm.group_size(self.group):
+            return None
+        return pm.row_slice(batch_size, self.group)
+
+    def _batch_group(self, batch_size):
+        """The group a batch's statistics and gradients reduce over."""
+        return self.group if self._rows(batch_size) is not None else None
+
+    def _shards(self, batch_size, pop_split):
+        """This rank's part of a global (P, B, H) dropout mask."""
+        shards = []
+        if pop_split:
+            shards.append((0, pm.group_rank(self.pop_group),
+                           pm.group_size(self.pop_group)))
+        if self._rows(batch_size) is not None:
+            shards.append((1, pm.group_rank(self.group),
+                           pm.group_size(self.group)))
+        return tuple(shards)
+
+    def _reduce_counts(self, counts, batch_size):
+        """Per-candidate counts of this rank's rows -> the global batch's:
+        SUM over the data group, a replicated batch counted on its first
+        rank only."""
+        if self.group is None:
+            return counts
+        if self._rows(batch_size) is None and pm.group_rank(self.group):
+            counts = torch.zeros_like(counts)
+        return pm.reduce_sum(counts, self.group)
 
     # ----- backbone features (shared by every candidate)
     def _features(self, inputs, train):
@@ -522,9 +601,13 @@ class PopulationTrainer:
 
     # ----- host loop
     def _placed_batches(self, loader, input_keys, label_key):
-        """(inputs, label, wmask) device tuples, host collation and the
-        host->device copy running one batch ahead."""
+        """(inputs, label, wmask) device tuples of this rank's rows, host
+        collation and the host->device copy running one batch ahead."""
+        group = self._batch_group(loader.batch_size)
+
         def place(batch):
+            batch = pm.shard_batch({k: batch[k] for k in (
+                *input_keys, label_key, "_mask")}, group)
             return (tuple(to_device(batch[k], self.device)
                           for k in input_keys),
                     to_device(batch[label_key], self.device),
@@ -534,8 +617,8 @@ class PopulationTrainer:
 
     def _eval_feature_batches(self, loader, input_keys, label_key):
         """Eval-mode features over a loader, (fa, fb, lb, la, label, wmask)
-        per loader batch; with bank_batch, consecutive batches share one
-        backbone forward."""
+        per loader batch (this rank's rows); with bank_batch, consecutive
+        batches share one backbone forward."""
         def extract(items):
             with self._section("features"):
                 if len(items) == 1:
@@ -588,29 +671,69 @@ class PopulationTrainer:
     def _build_bank(self, loader, input_keys, label_key):
         """One eval-mode extraction pass -> dict of per-sample device
         arrays (the padding rows of the final batch dropped, so bank N ==
-        dataset size), stored in the feature dtype or as int8."""
+        dataset size), stored in the feature dtype or as int8. Each batch's
+        rows are all-gathered over the data group; under
+        ``shard_feature_bank`` a rank keeps feature rows [r*m, (r+1)*m), m =
+        ceil(N/D), zero-padded, and every label."""
         store_dt = (_DTYPES[self.spec.feature_dtype]
                     if self.spec.feature_dtype else torch.float32)
-        parts = {"fa": [], "fb": [], "lb": [], "la": [], "label": []}
+        keys = ["fa", "fb", "lb", "la"]
         if self.int8_bank:
-            parts.update({k + "_scale": [] for k in ("fa", "fb", "lb", "la")})
+            keys += [k + "_scale" for k in keys]
+        parts = {k: [] for k in keys + ["label"]}
+        gather = self._rows(loader.batch_size) is not None
+        lo = hi = None
+        if self.shard_feature_bank:
+            d = pm.group_size(self.group)
+            m = -(-int(loader.dataset_size) // d)
+            lo = pm.group_rank(self.group) * m
+            hi = lo + m
+        off = 0
         for fa, fb, lb, la, label, wmask in self._eval_feature_batches(
                 loader, input_keys, label_key):
+            if gather:
+                fa, fb, lb, la, label, wmask = (
+                    pm.all_gather_rows(t, self.group)
+                    for t in (fa, fb, lb, la, label, wmask))
             n = int(wmask.sum())
+            got = {}
             for k, v in (("fa", fa), ("fb", fb), ("lb", lb), ("la", la)):
                 if self.int8_bank:
-                    q, s = _quantize_rows(v[:n])
-                    parts[k].append(q)
-                    parts[k + "_scale"].append(s)
+                    got[k], got[k + "_scale"] = _quantize_rows(v[:n])
                 else:
-                    parts[k].append(v[:n].to(store_dt))
+                    got[k] = v[:n].to(store_dt)
             parts["label"].append(label[:n])
-        return {k: torch.cat(v) for k, v in parts.items()}
+            mine = (slice(None) if lo is None
+                    else slice(max(lo - off, 0), max(min(hi - off, n), 0)))
+            for k in keys:
+                parts[k].append(got[k][mine])
+            off += n
+        bank = {k: torch.cat(v) for k, v in parts.items()}
+        if lo is not None:
+            for k in keys:
+                pad = (hi - lo) - bank[k].shape[0]
+                if pad:
+                    bank[k] = torch.cat([bank[k], bank[k].new_zeros(
+                        (pad,) + tuple(bank[k].shape[1:]))])
+        return bank
 
     def _bank_batch(self, bank, take, wmask):
-        """Gather one batch of the bank by the index row ``take``."""
+        """Gather one batch of the bank by the index row ``take``: this
+        rank's rows (all of them when replicated), from a whole bank
+        directly, from a sharded one through ``gather_rows``."""
+        rows = self._rows(len(take))
         idx = torch.as_tensor(take, dtype=torch.long, device=self.device)
-        got = {k: v.index_select(0, idx) for k, v in bank.items()}
+        if self.shard_feature_bank:
+            got = {k: (v.index_select(0, idx) if k == "label" else
+                       pm.gather_rows(v, idx, self.group))
+                   for k, v in bank.items()}
+            if rows is not None:
+                got = {k: v[rows] for k, v in got.items()}
+        else:
+            if rows is not None:
+                idx = idx[rows]
+            got = {k: v.index_select(0, idx) for k, v in bank.items()}
+        wmask = wmask if rows is None else wmask[rows]
         return (*(_bank_value(got, k) for k in ("fa", "fb", "lb", "la")),
                 got["label"], torch.as_tensor(wmask, device=self.device))
 
@@ -622,10 +745,13 @@ class PopulationTrainer:
                                                     shuffle_rs)):
             yield self._bank_batch(bank, take, wm)
 
-    def _step(self, params, bn_state, opt, conf, batch, eta):
+    def _step(self, params, bn_state, opt, conf, batch, eta, batch_size,
+              pop_split):
         with self._section("population steps"):
             return train_step(self.spec, params, bn_state, opt, conf, batch,
-                              eta, self.generator)
+                              eta, self.generator,
+                              self._batch_group(batch_size),
+                              self._shards(batch_size, pop_split))
 
     def _eval(self, params, bn_state, conf, batch):
         with self._section("population steps"):
@@ -635,21 +761,31 @@ class PopulationTrainer:
                          num_epochs, input_keys, label_key="label", seed=0,
                          verbose=False, shared_state_dict=None):
         """Returns (per-candidate best dev accuracy as a list of floats,
-        params, bn_state).
+        params, bn_state), the whole population's on every rank.
 
         shared_state_dict: optional weight-sharing store, injected before
         training and extracted from the final population state after."""
         spec = self.spec
-        conf = conf_tensors(confs, spec, self.device)
         params, bn_state = init_population(confs, spec, seed,
                                            device=self.device)
         if shared_state_dict is not None:
             params, bn_state = inject_shared_states(
                 params, bn_state, confs, spec, shared_state_dict,
                 verbose=verbose)
+        P = len(confs)
+        pop = pm.group_size(self.pop_group)
+        pop_split = pop > 1 and P % pop == 0
+        if pop_split:
+            # this pop group's candidates (a population the pop axis does
+            # not divide trains whole in every pop group)
+            mine = pm.row_slice(P, self.pop_group)
+            params = {k: v.detach()[mine].clone().requires_grad_()
+                      for k, v in params.items()}
+            bn_state = {k: v[mine].clone() for k, v in bn_state.items()}
+        conf = conf_tensors(confs[mine] if pop_split else confs, spec,
+                            self.device)
         opt = make_adam(params.values(), spec.weight_decay)
         self.generator.manual_seed(seed + 1)
-        P = len(confs)
 
         bank = None
         if self.cache_train_features:
@@ -658,31 +794,35 @@ class PopulationTrainer:
         bank_rs = np.random.RandomState(seed + 17)
         best = np.zeros((P,))
 
-        def record(phase, terms):
+        def record(phase, terms, batch_size):
             if not terms:
                 raise ValueError(
                     f"'{phase}' loader yielded no batches (dataset_size="
                     f"{dataset_sizes.get(phase)}): population training "
                     "needs at least one batch per split")
-            # one device->host copy per phase; float32 like the JAX
-            # package's accuracies
-            acc = (torch.stack(terms).sum(0).float().cpu().numpy()
-                   / np.float32(dataset_sizes[phase]))
+            # one reduction and one device->host copy per phase; float32
+            # like the JAX package's accuracies
+            counts = self._reduce_counts(torch.stack(terms).sum(0),
+                                         batch_size)
+            if pop_split:
+                counts = pm.all_gather_rows(counts, self.pop_group)
+            acc = counts.float().cpu().numpy() / np.float32(
+                dataset_sizes[phase])
             if verbose:
                 print("{} population acc: mean {:.4f} max {:.4f}".format(
                     phase, acc.mean(), acc.max()))
             return acc
 
+        bs = dataloaders["train"].batch_size
+        dev_bs = dataloaders["dev"].batch_size
         use_fused = (bank is not None and self.fused_epochs
                      and dataset_sizes.get("dev", 0) <= self.MAX_DEV_BANK)
         if use_fused:
             dev_bank = self._cached_bank("dev", dataloaders["dev"],
                                          input_keys, label_key)
             dev_plan = self._epoch_index_plan(
-                int(dev_bank["label"].shape[0]),
-                dataloaders["dev"].batch_size)
+                int(dev_bank["label"].shape[0]), dev_bs)
             n_train = int(bank["label"].shape[0])
-            bs = dataloaders["train"].batch_size
             for epoch in range(num_epochs):
                 take, wm = self._epoch_index_plan(n_train, bs, bank_rs)
                 # the scheduler steps exactly as on the per-batch path
@@ -691,24 +831,24 @@ class PopulationTrainer:
                 for take_s, wm_s, eta in zip(take, wm, etas):
                     bn_state, _, corr = self._step(
                         params, bn_state, opt, conf,
-                        self._bank_batch(bank, take_s, wm_s), eta)
+                        self._bank_batch(bank, take_s, wm_s), eta, bs,
+                        pop_split)
                     tr.append(corr)
                 dev = [self._eval(params, bn_state, conf,
                                   self._bank_batch(dev_bank, t, w))
                        for t, w in zip(*dev_plan)]
-                record("train", tr)
-                best = np.maximum(best, record("dev", dev))
+                record("train", tr, bs)
+                best = np.maximum(best, record("dev", dev, dev_bs))
         else:
+            set_data_group(self.extractor, self._batch_group(bs))
             for epoch in range(num_epochs):
                 for phase in ("train", "dev"):
                     terms = []
                     if phase == "train" and bank is not None:
-                        for batch in self._bank_batches(
-                                bank, dataloaders["train"].batch_size,
-                                bank_rs):
+                        for batch in self._bank_batches(bank, bs, bank_rs):
                             bn_state, _, corr = self._step(
                                 params, bn_state, opt, conf, batch,
-                                scheduler.step())
+                                scheduler.step(), bs, pop_split)
                             terms.append(corr)
                     elif phase == "train":
                         for inputs, label, wmask in self._placed_batches(
@@ -717,17 +857,24 @@ class PopulationTrainer:
                                 feats = self._features(inputs, True)
                             bn_state, _, corr = self._step(
                                 params, bn_state, opt, conf,
-                                (*feats, label, wmask), scheduler.step())
+                                (*feats, label, wmask), scheduler.step(),
+                                bs, pop_split)
                             terms.append(corr)
                     else:
                         for batch in self._dev_batches(
                                 dataloaders["dev"], input_keys, label_key):
                             terms.append(self._eval(params, bn_state, conf,
                                                     batch))
-                    acc = record(phase, terms)
+                    acc = record(phase, terms,
+                                 bs if phase == "train" else dev_bs)
                     if phase == "dev":
                         best = np.maximum(best, acc)
 
+        if pop_split:
+            params = {k: pm.all_gather_rows(v.detach(), self.pop_group)
+                      for k, v in params.items()}
+            bn_state = {k: pm.all_gather_rows(v, self.pop_group)
+                        for k, v in bn_state.items()}
         if shared_state_dict is not None:
             extract_shared_states(params, bn_state, confs, spec,
                                   shared_state_dict, verbose=verbose)

@@ -8,6 +8,9 @@ a pickle of plain Python and numpy values only (the surrogate's parameters
 and Adam state in the JAX package's layout, the shared weights, the
 candidate-seed counter, both RNG streams and the loaders' RNG states), so a
 state written by the JAX package resumes here and the other way round.
+Under a process group only rank 0 writes the state and the jsonl (every
+rank holds the same ones), and a resume must resolve the same point on
+every rank (parallel/mesh.py::require_resume_agreement).
 """
 
 from __future__ import annotations
@@ -23,6 +26,8 @@ import time
 import numpy as np
 
 import mfas_tpu_torch.search.tools as tools
+from mfas_tpu_torch.parallel.mesh import (barrier, is_primary_process,
+                                          require_resume_agreement)
 from mfas_tpu_torch.search.surrogate import SurrogateDataloader
 
 
@@ -40,7 +45,7 @@ class ModelSearcher:
                 else contextlib.nullcontext())
 
     def _log_event(self, **event):
-        if self._jsonl:
+        if self._jsonl and is_primary_process():
             with open(self._jsonl, "a") as f:
                 f.write(json.dumps(event, default=_np_default) + "\n")
 
@@ -48,8 +53,20 @@ class ModelSearcher:
     def _save_state(self, path, s_data, temperature, si, progression_index,
                     sampled_k_confs, surrogate, shared_weights=None,
                     trainer=None, dataloaders=None):
+        """Write the search state (rank 0 alone); every rank returns once
+        the file is whole, so a resume in the same job reads this step's."""
         if not path:
             return
+        if is_primary_process():
+            self._write_state(path, s_data, temperature, si,
+                              progression_index, sampled_k_confs, surrogate,
+                              shared_weights, trainer, dataloaders)
+        barrier()
+
+    @staticmethod
+    def _write_state(path, s_data, temperature, si, progression_index,
+                     sampled_k_confs, surrogate, shared_weights, trainer,
+                     dataloaders):
         state = {
             "surrogate_data": s_data.state(),
             "np_random_state": np.random.get_state(),
@@ -131,6 +148,8 @@ class ModelSearcher:
             if self.args.verbose:
                 print("Resuming search after iteration {} step {}".format(
                     *resume_after))
+        if self.args.resume_search:
+            require_resume_agreement(resume_after)
 
         for si in range(self.args.search_iterations):
             if self.args.verbose:
@@ -252,6 +271,8 @@ class ModelSearcher:
             if self.args.verbose:
                 print(f"Resuming random search after iteration "
                       f"{resume_after}")
+        if self.args.resume_search:
+            require_resume_agreement((resume_after,))
 
         total = self.args.search_iterations * self.args.max_progression_levels
         for si in range(total):

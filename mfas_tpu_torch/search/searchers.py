@@ -12,6 +12,10 @@ that kernel K1 normalizes on the device (--device_input_normalize);
 AV-MNIST's is float32 arrays in host memory, split into train and dev rows. CIFAR has no backbone: each
 candidate is a whole micro-cell net trained on its own
 (``CifarSearchTrainer``).
+
+``group`` (parallel/mesh.py): the data group of ``--use_dataparallel``,
+handed to the candidate trainers; with ``--shard_feature_bank`` the
+population trainer's feature banks are split by rows over it.
 """
 
 from __future__ import annotations
@@ -67,26 +71,30 @@ def _load_backbones(args, extractor, checkpoints):
 
 
 def _candidate_trainer(args, spec, extractor, backbone_states, input_keys,
-                       device, timer, batch_prep=None, input_prep=None):
+                       device, timer, batch_prep=None, input_prep=None,
+                       group=None):
     """The sequential trainer under --sequential_candidates, else the
     population trainer with the sequential one as its weight-sharing
     fallback."""
     seq = SequentialSearchTrainer(backbone_states, input_keys, device=device,
-                                  batch_prep=batch_prep, timer=timer)
+                                  batch_prep=batch_prep, timer=timer,
+                                  group=group)
     if args.sequential_candidates:
         return seq
     return PopulationSearchTrainer(
         spec, extractor, input_keys, device=device, sequential_fallback=seq,
         input_prep=input_prep, cache_features=args.cache_features,
         fused_epochs=not args.no_fused_epochs, bank_batch=args.bank_batch,
-        int8_bank=args.int8_feature_bank, timer=timer)
+        int8_bank=args.int8_feature_bank, timer=timer, group=group,
+        shard_feature_bank=args.shard_feature_bank)
 
 
 class NTUSearcher(ModelSearcher):
     """trainexp for search training, dev for ranking (reference
     models/searchable.py:233-260)."""
 
-    def __init__(self, args, *, device, jsonl_log=None, timer=None):
+    def __init__(self, args, *, device, jsonl_log=None, timer=None,
+                 group=None):
         super().__init__(args, jsonl_log=jsonl_log, timer=timer)
         self.device = torch.device(device)
         tfm_val = ntu_data.Compose([ntu_data.NormalizeLen(args.vid_len)])
@@ -152,7 +160,8 @@ class NTUSearcher(ModelSearcher):
                 torch.bfloat16 if feature_dtype else None)
         self.train_fn = _candidate_trainer(
             args, spec, extractor, backbone_states, ("rgb", "ske"),
-            self.device, timer, batch_prep=batch_prep, input_prep=input_prep)
+            self.device, timer, batch_prep=batch_prep, input_prep=input_prep,
+            group=group)
         self.surrogate = SimpleRecurrentSurrogate(100, 3, 100,
                                                   device=self.device)
 
@@ -168,7 +177,8 @@ class AVMNISTSearcher(ModelSearcher):
     """train[0:50000] for search training, train[50000:55000] as dev
     (reference models/searchable.py:184-224)."""
 
-    def __init__(self, args, *, device, jsonl_log=None, timer=None):
+    def __init__(self, args, *, device, jsonl_log=None, timer=None,
+                 group=None):
         super().__init__(args, jsonl_log=jsonl_log, timer=timer)
         self.device = torch.device(device)
         arrays = load_avmnist_arrays(args.datadir, "train")
@@ -199,7 +209,7 @@ class AVMNISTSearcher(ModelSearcher):
 
         self.train_fn = _candidate_trainer(
             args, spec, extractor, backbone_states, ("image", "audio"),
-            self.device, timer)
+            self.device, timer, group=group)
         self.surrogate = SimpleRecurrentSurrogate(100, 3, 100,
                                                   device=self.device)
 
@@ -222,7 +232,8 @@ class CifarSearcher(ModelSearcher):
     loaders take the TRAIN transforms, as the reference builds both from
     the train-transform dataset (:294-297)."""
 
-    def __init__(self, args, *, device, jsonl_log=None, timer=None):
+    def __init__(self, args, *, device, jsonl_log=None, timer=None,
+                 group=None):
         super().__init__(args, jsonl_log=jsonl_log, timer=timer)
         self.device = torch.device(device)
         arrays = load_cifar10_arrays(args.data_dir, train=True)
@@ -233,7 +244,8 @@ class CifarSearcher(ModelSearcher):
             "dev": CifarLoader(arrays, args.batchsize, train=True, seed=1,
                                indices=np.arange(split, hi)),
         }
-        self.train_fn = CifarSearchTrainer(device=self.device, timer=timer)
+        self.train_fn = CifarSearchTrainer(device=self.device, timer=timer,
+                                           group=group)
         self.surrogate = SimpleRecurrentSurrogate(100, 4, 100,
                                                   device=self.device)
 

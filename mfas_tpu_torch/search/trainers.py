@@ -11,6 +11,9 @@ the searcher (port of mfas_tpu/search/trainers.py).
     through ``engine/cifar.py::CifarEngine``; under ``--weightsharing`` op
     weights pass between candidates by op type (``get_cifar_states``).
 
+Each takes the data ``group`` of ``--use_dataparallel`` (parallel/mesh.py)
+and hands it to its engine or population trainer.
+
 Shared weights are stored as nested dicts of numpy arrays, the layout of
 the JAX package (and of ``population.extract_shared_states``), keyed
 '{i}.L_{in}_{out}.A_{act}' -> {"0": {weight, bias}, "2": {BatchNorm}} for
@@ -81,7 +84,7 @@ class SequentialSearchTrainer:
     """One candidate at a time, like the reference loop."""
 
     def __init__(self, backbone_states: dict, input_keys, *, device,
-                 batch_prep=None, timer=None):
+                 batch_prep=None, timer=None, group=None):
         """backbone_states: attribute name -> state_dict, e.g.
         {'rgbnet': ..., 'skenet': ...}, loaded into every candidate.
         batch_prep: the engine's on-device batch transform (K1)."""
@@ -91,6 +94,7 @@ class SequentialSearchTrainer:
         self._seed = 0      # +1 per candidate; a search state keeps it
         self.batch_prep = batch_prep
         self.timer = timer
+        self.group = group
         self.candidates_trained = 0
 
     def __call__(self, sampled_configurations, searchable_type, dataloaders,
@@ -117,7 +121,8 @@ class SequentialSearchTrainer:
             engine = ClassifierEngine(model, self.device,
                                       multitask=args.multitask,
                                       input_keys=self.input_keys,
-                                      batch_prep=self.batch_prep)
+                                      batch_prep=self.batch_prep,
+                                      group=self.group)
             scheduler = LRCosineAnnealingScheduler(
                 args.eta_max, args.eta_min, args.Ti, args.Tm, nbpe)
             with (self.timer.section("sequential candidates")
@@ -141,14 +146,16 @@ class PopulationSearchTrainer:
     def __init__(self, spec, extractor, input_keys, *, device,
                  sequential_fallback=None, input_prep=None,
                  cache_features=False, fused_epochs=True, bank_batch=None,
-                 int8_bank=False, timer=None):
+                 int8_bank=False, timer=None, group=None,
+                 shard_feature_bank=False):
         self.spec = spec
         self.input_keys = tuple(input_keys)
         self._seed = 0      # +1 per population; a search state keeps it
         self.trainer = PopulationTrainer(
             spec, extractor, device=device, input_prep=input_prep,
             cache_train_features=cache_features, fused_epochs=fused_epochs,
-            bank_batch=bank_batch, int8_bank=int8_bank, timer=timer)
+            bank_batch=bank_batch, int8_bank=int8_bank, timer=timer,
+            group=group, shard_feature_bank=shard_feature_bank)
         self.sequential_fallback = sequential_fallback
         self.candidates_trained = 0
 
@@ -240,10 +247,11 @@ class CifarSearchTrainer:
     (+1 per candidate; a search state keeps it), trained by ``CifarEngine``
     with dropout and DropPath at ``seed + TRAIN_SEED_OFFSET``."""
 
-    def __init__(self, *, device, timer=None):
+    def __init__(self, *, device, timer=None, group=None):
         self.device = torch.device(device)
         self._seed = 0
         self.timer = timer
+        self.group = group
         self.candidates_trained = 0
 
     def build_model(self, searchable_type, args, configuration):
@@ -268,7 +276,7 @@ class CifarSearchTrainer:
                 print("Now training: ")
                 print(configuration)
 
-            engine = CifarEngine(model, self.device)
+            engine = CifarEngine(model, self.device, group=self.group)
             scheduler = LRCosineAnnealingScheduler(
                 args.eta_max, args.eta_min, args.Ti, args.Tm, nbpe)
             with (self.timer.section("whole-net candidates")

@@ -144,17 +144,25 @@ def test_backbone_checkpoints(fx, tmp_path, capsys):
     assert np.isfinite(run.acc) and "WARNING" in capsys.readouterr().out
 
 
+# the multi-GPU flags are ported (parallel/mesh.py; two ranks in
+# tests/test_torch_parallel_cli.py): on a card-less command line they stop
+# for want of CUDA like any other, and a --dist_* trio that cannot form a
+# group stops with a ValueError naming the missing flag
 @pytest.mark.parametrize("extra, what", [
     ([], "needs a CUDA device"),
-    (["--use_dataparallel"], "Multi-GPU"),
-    (["--dist_coordinator", "localhost:1234"], "Multi-GPU"),
-    (["--dist_process_id", "1"], "Multi-GPU"),
+    (["--use_dataparallel"], "needs a CUDA device"),
+    (["--dist_coordinator", "localhost:1234"], "dist_num_processes"),
+    (["--dist_process_id", "1"], "dist_coordinator"),
 ])
 def test_cli_guards(fx, extra, what, monkeypatch):
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(SystemExit) as e:
-        tmain.main(fx["argv"] + extra)
-    assert what in str(e.value)
+    if what.startswith("dist_"):
+        with pytest.raises(ValueError, match=what):
+            tmain.main(fx["argv"] + extra, device="cpu")
+    else:
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(SystemExit) as e:
+            tmain.main(fx["argv"] + extra)
+        assert what in str(e.value)
     with pytest.raises(SystemExit, match="--conf must be one of"):
         tmain.main(fx["argv"] + ["--conf", "3"], device="cpu")
 

@@ -245,31 +245,52 @@ def test_parser_has_the_jax_option_strings_and_defaults(monkeypatch):
         k: v.tolist() for k, v in jmain.FOUND_CONFS.items()}
 
 
+# The multi-GPU flags are ported (parallel/mesh.py): each former stop is
+# now one of JAX's partial --dist_* ValueError, --use_dataparallel /
+# --shard_resident_store on one process giving the plain run bitwise, or
+# the card-less command line stopping for want of CUDA.
+# (extra argv over the fixture's --test_cp run, or a whole argv; expected)
 UNPORTED = {
-    "shard_resident_store": ["--test_cp", "x", "--packed_datadir", "p",
-                             "--hbm_resident", "--shard_resident_store"],
-    "dataparallel": ["--test_cp", "x", "--packed_datadir", "p",
-                     "--hbm_resident", "--use_dataparallel"],
-    "dist": ["--test_cp", "x", "--packed_datadir", "p", "--hbm_resident",
-             "--dist_num_processes", "2"],
-    # the raw-AVI and host-normalized inputs are ported
-    # (tests/test_torch_ntu_raw_cli.py); the multi-GPU flags still stop
-    # on them
-    "raw_avi": ["--test_cp", "x", "--use_dataparallel"],
-    "raw_avi_training": ["--epochs", "1", "--dist_num_processes", "2"],
-    "host_normalize": ["--test_cp", "x", "--packed_datadir", "p",
-                       "--shard_resident_store"],
-    "channels_last": ["--test_cp", "x", "--packed_datadir", "p",
-                      "--hbm_resident", "--conv_channels_last"],
-    "dataparallel_training": ["--packed_datadir", "p", "--hbm_resident",
-                              "--use_dataparallel"],
+    "shard_resident_store": (["--hbm_resident", "--shard_resident_store"],
+                             ("plain", ["--hbm_resident"])),
+    "dataparallel": (["--hbm_resident", "--use_dataparallel"],
+                     ("plain", ["--hbm_resident"])),
+    "dist": (["--test_cp", "x", "--packed_datadir", "p", "--hbm_resident",
+              "--dist_num_processes", "2"], ("raises", ValueError)),
+    "raw_avi": (["--test_cp", "x", "--use_dataparallel"],
+                ("needs", "needs a CUDA device")),
+    "raw_avi_training": (["--epochs", "1", "--dist_num_processes", "2"],
+                         ("raises", ValueError)),
+    # off the resident path the flag has nothing to split (as in JAX)
+    "host_normalize": (["--shard_resident_store"], ("plain", [])),
+    "channels_last": (["--test_cp", "x", "--packed_datadir", "p",
+                       "--hbm_resident", "--conv_channels_last"],
+                      ("raises", SystemExit)),
+    "dataparallel_training": (["--packed_datadir", "p", "--hbm_resident",
+                               "--use_dataparallel"],
+                              ("needs", "needs a CUDA device")),
 }
 
 
 @pytest.mark.parametrize("case", list(UNPORTED))
-def test_unported_flags_stop_and_name_the_roadmap_item(case):
-    with pytest.raises(SystemExit, match="ROADMAP.md"):
-        tmain.main(UNPORTED[case], device="cpu")
+def test_unported_flags_stop_and_name_the_roadmap_item(case, fixture,
+                                                       monkeypatch):
+    argv, (kind, want) = UNPORTED[case]
+    if kind == "plain":
+        run = tmain.main(fixture["argv"] + argv, device="cpu")
+        plain = tmain.main(fixture["argv"] + want, device="cpu")
+        assert run.acc == plain.acc
+        np.testing.assert_array_equal(valid_rows(run.eval),
+                                      valid_rows(plain.eval))
+    elif kind == "raises":
+        with pytest.raises(want) as e:
+            tmain.main(argv, device="cpu")
+        assert ("dist_coordinator" if want is ValueError
+                else "ROADMAP.md") in str(e.value)
+    else:
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(SystemExit, match=want):
+            tmain.main(argv)
 
 
 def test_command_line_needs_cuda(monkeypatch):

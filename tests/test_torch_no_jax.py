@@ -75,5 +75,7 @@ def test_port_imports_neither_jax_nor_mfas_tpu():
                  "mfas_tpu_torch.tools.convert_torchvision",
                  "mfas_tpu_torch.tools.search_report",
                  "mfas_tpu_torch.tools.parity_kit",
-                 "mfas_tpu_torch.tools.profile_step"):
+                 "mfas_tpu_torch.tools.profile_step",
+                 "mfas_tpu_torch.parallel",
+                 "mfas_tpu_torch.parallel.mesh"):
         assert name in res["modules"]

@@ -195,18 +195,26 @@ def test_train_seed_draws_per_candidate(root):
     assert losses(None) == losses(TRAIN_SEED_OFFSET)
 
 
+# the multi-GPU flags are ported (parallel/mesh.py): on a card-less command
+# line they stop for want of CUDA like any other, and a partial --dist_*
+# trio stops with the JAX package's ValueError before anything runs
 @pytest.mark.parametrize("extra, item", [
     ([], None),
-    (["--use_dataparallel"], "Multi-GPU"),
-    (["--shard_feature_bank"], "Multi-GPU"),
-    (["--dist_coordinator", "localhost:1234"], "Multi-GPU"),
-    (["--dist_process_id", "0"], "Multi-GPU"),
+    (["--use_dataparallel"], None),
+    (["--shard_feature_bank"], None),
+    # a group it cannot form (no --dist_num_processes) fails
+    (["--dist_coordinator", "localhost:1234"], "dist_num_processes"),
+    (["--dist_process_id", "0"], "dist_coordinator"),
 ])
 def test_cli_guards(root, extra, item, monkeypatch):
+    if item:
+        with pytest.raises(ValueError, match=item):
+            tmain.main(argv_of(root, *extra), device="cpu")
+        return
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit) as e:
         tmain.main(argv_of(root, *extra))
-    assert (item or "needs a CUDA device") in str(e.value)
+    assert "needs a CUDA device" in str(e.value)
 
 
 @pytest.mark.parametrize("drop", ["--packed_datadir",
