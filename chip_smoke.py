@@ -170,7 +170,27 @@
    both ranks, first-step accuracies within 0.02 of (s4)'s first run's, and
    a resume from rank 0's state that agrees; (d5) the CIFAR found net with
    --drop_path 0.1, 3 steps at B=128: the ranks' parameters bitwise equal
-   after each. No rate of (d2)-(d5) is a scaling figure.
+   after each. No rate of (d2)-(d5) is a scaling figure;
+18. the rest of the NTU vertical (phase (n), ntu_rest_phase): (n1) each
+   layout option of core/functional.py (conv_channels_last, conv3d_as_2d,
+   conv1x1_as_matmul, pool_as_slices, pool_separable) at ResNet-50's layer
+   shapes (B=2, 8 frames, 256 px) against the default, values and input
+   gradients, within 1e-10 of max in float64 and 1e-4 in float32, each
+   option's formulation seen to run (the pool on tie-free inputs); (n2)
+   ``main_found_ntu --conv_channels_last --hbm_resident`` one epoch per
+   phase on (a)'s store: 9 K2 launches, Model Acc within 2 clips of 50 of
+   (a)'s; then warm phase-2 steps at B=20 in f32 and --bf16, NCDHW and
+   channels-last in turns (plain, chlast, chlast, plain) with peak memory;
+   (n3) ``mfas_tpu_torch.tools.bf16_sweep`` on five variants, each
+   variant's formulation seen to run and its first-step loss within 1e-4
+   (f32) / 5e-3 (bf16) relative of its precision's default; (n4)
+   LateFusion, GMU and CentralNet at full width (ResNet-50 + HCN): eval
+   forwards at B=20, 8 frames, 256 px on K1-normalized clips (CentralNet
+   also at 224 px, where it downsamples the skeleton maps 32->28, 16->14),
+   clips/s and peak memory; each card against the CPU in float64 at B=1, 2
+   frames, 224 px: the forward within 1e-9 of max, one train step's
+   gradients within 1e-6 of each tensor's max (CentralNet's central
+   column; its unused and analytically vanishing tensors named).
 
 mfas_tpu_torch/scripts/archive_smoke.sh runs this script from a git archive
 of the tree and alone in an empty directory.
@@ -178,7 +198,8 @@ of the tree and alone in an empty directory.
 TF32 is off throughout. Any failed check exits non-zero. Before the last
 lines come {"slice": ...}, {"training": ...}, {"search": ...},
 {"avmnist": ...}, {"mmimdb": ...}, {"cifar": ...}, {"serving": ...},
-{"tools": ...} and {"multi_gpu": ...} with the measured numbers; then {"kernels": [...]} with
+{"tools": ...}, {"multi_gpu": ...} and {"ntu_rest": ...} with the measured
+numbers; then {"kernels": [...]} with
 each kernel's launches on the main paths, time, plain version's time and
 bound; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero.
@@ -3908,6 +3929,389 @@ def multi_gpu_phase(torch, work, train, search):
     return out
 
 
+# --------------------------------------------------------------------------
+# phase (n): the rest of the NTU vertical (the layout options, the sweep,
+# the fusion baselines)
+# --------------------------------------------------------------------------
+# (n1): ResNet-50's layer shapes at B=2, 8 frames, 256 px:
+# (name, function, input shape, weight shape, kwargs, options)
+N1_CONVS = (
+    ("stem_conv2d", "conv2d", (16, 3, 256, 256), (64, 3, 7, 7),
+     dict(stride=2, padding=3), ("conv_channels_last",)),
+    ("layer1_conv1x1x1", "conv3d", (2, 64, 8, 64, 64), (64, 64, 1, 1, 1),
+     {}, ("conv1x1_as_matmul", "conv3d_as_2d", "conv_channels_last")),
+    ("layer1_conv3x3x3", "conv3d", (2, 64, 8, 64, 64), (64, 64, 3, 3, 3),
+     dict(padding=1), ("conv3d_as_2d", "conv_channels_last")),
+    ("layer2_downsample_s122", "conv3d", (2, 256, 8, 64, 64),
+     (512, 256, 1, 1, 1), dict(stride=(1, 2, 2)),
+     ("conv1x1_as_matmul", "conv3d_as_2d", "conv_channels_last")),
+    ("layer4_conv3x3x3_s122", "conv3d", (2, 512, 8, 16, 16),
+     (512, 512, 3, 3, 3), dict(stride=(1, 2, 2), padding=1),
+     ("conv3d_as_2d", "conv_channels_last")),
+)
+N1_POOL = ("stem_max_pool", (16, 64, 128, 128), dict(kernel_size=3,
+                                                     stride=2, padding=1),
+           ("pool_as_slices", "pool_separable"))
+N1_TOL = {"float64": 1e-10, "float32": 1e-4}    # of the default's max
+N2_WARM = (2, 5)        # warm phase-2 steps per turn: untimed, timed
+N3_VARIANTS = ["f32_B16", "bf16_B16", "bf16_B16_chlast", "bf16_B16_3das2d",
+               "bf16_B16_seppool"]
+N3_LOSS_TOL = {False: 1e-4, True: 5e-3}     # first-step loss, relative
+N4_EVAL = (20, 8, 2, 5)     # B, frames, untimed, timed forwards
+N4_PX = (256, 224)          # the eval forwards' px; CentralNet's second
+N4_STEP = (1, 2, 224)       # card vs CPU: B, frames, px
+N4_TOL = (1e-9, 1e-6)       # forward, gradients: of the CPU's max
+BASELINES = ("LateFusion", "GMU", "CentralNet")
+
+
+def _rel_err(got, want):
+    """max |got - want| over max |want|."""
+    return ((got.double() - want.double()).abs().max()
+            / want.double().abs().max().clamp_min(1e-300)).item()
+
+
+def layout_options_full_width(torch):
+    """(n1): every option's formulation of each conv and of the stem's max
+    pool against the default, values and input gradients (the gradient of
+    sum(out * g) for a random g), in float64 and float32; the pool's input
+    is tie-free (a permutation of 2^24 distinct values), since at tied
+    maxima the options may route the gradient to another element."""
+    from mfas_tpu_torch.core import functional as F
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    out = {}
+
+    def run(fn, x, args, options):
+        x = x.detach().requires_grad_(True)
+        before = F.OPTION_CALLS.copy()
+        with F.layout_options(**{o: True for o in options}):
+            y = fn(x, *args)
+            cot = torch.randn(y.shape, dtype=y.dtype, device="cuda",
+                              generator=torch.Generator(
+                                  device="cuda").manual_seed(SEED + 1))
+            (gx,) = torch.autograd.grad(y, x, cot)
+        torch.cuda.synchronize()
+        return y.detach(), gx, F.OPTION_CALLS - before
+
+    cases = [(name, getattr(F, fn), xs, (ws,), kw, opts)
+             for name, fn, xs, ws, kw, opts in N1_CONVS]
+    cases.append((N1_POOL[0], F.max_pool2d, N1_POOL[1], (), N1_POOL[2],
+                  N1_POOL[3]))
+    for dt in (torch.float64, torch.float32):
+        dname = str(dt).split(".")[1]
+        for name, fn, xs, ws, kw, opts in cases:
+            if ws:
+                x = torch.randn(xs, dtype=dt, device="cuda", generator=g)
+                w = torch.randn(ws[0], dtype=dt, device="cuda", generator=g)
+                w = w / w[0].numel() ** 0.5
+                args = (w, None)
+            else:
+                n = 1
+                for d in xs:
+                    n *= d
+                x = (torch.randperm(n, device="cuda", generator=g)
+                     .to(dt).reshape(xs) / n)
+                args = ()
+
+            def call(xx, *a):
+                return fn(xx, *a, **kw)
+
+            ref_y, ref_g, calls = run(call, x, args, ())
+            check(not calls, f"(n1) {name}: the default took {calls}")
+            for opt in opts:
+                y, gx, calls = run(call, x, args, (opt,))
+                check(calls[opt] > 0, f"(n1) {name} {opt}: the option's "
+                      f"formulation never ran ({dict(calls)})")
+                ev, eg = _rel_err(y, ref_y), _rel_err(gx, ref_g)
+                tol = N1_TOL[dname]
+                check(y.shape == ref_y.shape and ev <= tol and eg <= tol,
+                      f"(n1) {name} {opt} {dname}: value {ev:.3e}, input "
+                      f"gradient {eg:.3e} of the default's max (tol {tol})")
+                out[f"{name}/{opt}/{dname}"] = {"value_err": ev,
+                                                "grad_err": eg}
+            del x, args
+    worst = {d: max(max(v.values()) for k, v in out.items()
+                    if k.endswith(d)) for d in N1_TOL}
+    print(f"(n1) {len(out)} option/shape/dtype cases, values and input "
+          f"gradients within {worst['float64']:.3e} (f64) and "
+          f"{worst['float32']:.3e} (f32) of the default's max", flush=True)
+    return {"cases": out, "worst": worst}
+
+
+def _timed_train_steps(torch, engine, batch, opt, eta, n_warm, n_timed):
+    """-> (median ms, peak bytes over the timed steps) of warm steps."""
+    import numpy as np
+
+    times = []
+    for i in range(n_warm + n_timed):
+        if i == n_warm:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss, _ = engine._train_step(batch, opt, eta)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        check(np.isfinite(float(loss)), f"(n2) loss {loss}")
+    return (float(np.median(times[n_warm:])) * 1e3,
+            torch.cuda.max_memory_allocated())
+
+
+def channels_last_training(torch, tk, work, packed, train):
+    """(n2): ``main_found_ntu --conv_channels_last --hbm_resident``, one
+    epoch per phase on (a)'s store, against (a); then warm phase-2 steps in
+    f32 and under --bf16, NCDHW and channels-last in turns (plain, chlast,
+    chlast, plain), each turn's median and peak memory."""
+    from mfas_tpu_torch import main_found_ntu as tmain
+    from mfas_tpu_torch.core import functional as F
+    from mfas_tpu_torch.core.layers import to_channels_last
+    from mfas_tpu_torch.data.ntu import Compose, NormalizeLen
+    from mfas_tpu_torch.data.resident import ResidentLoader, ResidentNTUStore
+    from mfas_tpu_torch.engine.classifier import place_batch, set_trainable
+
+    phase("(n2) --conv_channels_last training, full width")
+    want_acc = train["a_resident_f32"]["model_acc"]
+    base = ["--checkpointdir", work, "--packed_datadir", packed, *TRAIN_ARGV,
+            "--hbm_resident"]
+    torch.cuda.empty_cache()
+    tk.reset_launch_counts()
+    before = F.OPTION_CALLS["conv_channels_last"]
+    t0 = time.time()
+    run = tmain.main(base + ["--conv_channels_last"])
+    wall = time.time() - t0
+    counts = dict(tk.launch_counts)
+    want = 2 * (BATCHES["train"] + BATCHES["dev"]) + BATCHES["test"]
+    check(counts == {"u8_normalize": 0, "u8_gather_normalize": want},
+          f"(n2) launches {counts}, want {want} of K2")
+    check(F.OPTION_CALLS["conv_channels_last"] > before
+          and not F.CONV_CHANNELS_LAST,
+          "(n2) the run took no channels-last conv, or left the option on")
+    check(abs(run.acc - want_acc) <= 2 / 50,
+          f"(n2) Model Acc {run.acc} vs (a)'s {want_acc}")
+    phases = [{"train_clips_per_s": r.train_clips / r.train_seconds,
+               "peak_bytes": p}
+              for r, p in zip(run.train, run.train_peak_bytes)]
+    print(f"(n2) Model Acc {run.acc} ((a) {want_acc}), K2 {want} launches, "
+          f"run {wall:.1f} s, train clips/s per phase "
+          f"{[round(p['train_clips_per_s'], 2) for p in phases]}", flush=True)
+    out = {"model_acc": run.acc, "a_model_acc": want_acc,
+           "launches": counts["u8_gather_normalize"], "run_seconds": wall,
+           "phases": phases}
+    del run
+
+    n_warm, n_timed = N2_WARM
+    for mode, extra in (("f32", []), ("bf16", ["--bf16"])):
+        args = tmain.parse_args(["--packed_datadir", packed,
+                                 "--hbm_resident", *TRAIN_ARGV, *extra])
+        store = ResidentNTUStore(os.path.join(packed, "train"), "cuda",
+                                 args=args)
+        loader = ResidentLoader(store, args.batchsize,
+                                Compose([NormalizeLen(args.vid_len)]))
+        batch = place_batch(next(iter(loader)), "cuda")
+        nets = {}
+        for layout in ("plain", "chlast"):
+            model = tmain.build_model(args, tmain.FOUND_CONFS[4], "cuda")
+            if layout == "chlast":
+                to_channels_last(model)
+            engine = tmain.make_engine(model, args, "cuda")
+            set_trainable(model, None)
+            model.train()
+            nets[layout] = (engine, engine.make_optimizer())
+        turns = []
+        for layout in ("plain", "chlast", "chlast", "plain"):
+            engine, opt = nets[layout]
+            with F.layout_options(conv_channels_last=layout == "chlast"):
+                ms, peak = _timed_train_steps(torch, engine, batch, opt,
+                                              args.eta_max, n_warm, n_timed)
+            turns.append({"layout": layout, "step_ms": ms,
+                          "peak_bytes": peak})
+        out[f"warm_{mode}"] = turns
+        print(f"(n2) warm phase-2 steps {mode}, B=20, in turns: "
+              + ", ".join(f"{t['layout']} {t['step_ms']:.1f} ms "
+                          f"({t['peak_bytes'] / 2**30:.2f} GiB)"
+                          for t in turns), flush=True)
+        del nets, engine, opt, store, loader, batch
+        torch.cuda.empty_cache()
+    return out
+
+
+def sweep_run(torch):
+    """(n3): the sweep tool on N3_VARIANTS; each variant's formulation ran,
+    and its first-step loss is its precision's default's within
+    N3_LOSS_TOL."""
+    import numpy as np
+
+    from mfas_tpu_torch.tools import bf16_sweep
+
+    phase("(n3) mfas_tpu_torch.tools.bf16_sweep")
+    res = bf16_sweep.main(N3_VARIANTS)
+    names = {"chlast": "conv_channels_last", "3das2d": "conv3d_as_2d",
+             "seppool": "pool_separable"}
+    for name, r in res.items():
+        check("error" not in r and np.isfinite(r["first_loss"]),
+              f"(n3) {name}: {r}")
+        named = {names[t] for t in name.split("_")[2:]}
+        took = {o for o, n in r["option_calls"].items() if n}
+        check(took == named, f"(n3) {name} took {took}, wants {named}")
+        base = res["bf16_B16" if r["bf16"] else "f32_B16"]["first_loss"]
+        rel = abs(r["first_loss"] - base) / abs(base)
+        check(rel <= N3_LOSS_TOL[r["bf16"]],
+              f"(n3) {name} first-step loss {r['first_loss']} vs {base}")
+        r["first_loss_rel_err"] = rel
+    print("(n3) first-step losses within "
+          + ", ".join(f"{k} {v['first_loss_rel_err']:.2e}"
+                      for k, v in res.items()), flush=True)
+    return res
+
+
+def _baseline(torch, name, args, device, seed=SEED):
+    from mfas_tpu_torch.models import ntu as TN
+
+    return getattr(TN, name)(args, device=device,
+                             generator=torch.Generator().manual_seed(seed))
+
+
+def baselines_phase(torch, tk):
+    """(n4): LateFusion, GMU and CentralNet at full width: eval forwards at
+    B=20, 8 frames, 256 px on K1-normalized clips (CentralNet also at 224
+    px, where it aligns the skeleton maps by downsampling), clips/s and
+    peak memory; then each card against the CPU in float64 at N4_STEP:
+    the eval forward within 1e-9 of max, one train step's gradients within
+    1e-6 of each tensor's max (LateFusion and GMU over every parameter,
+    CentralNet over central_params()); the gradients that vanish
+    analytically, named, below 1e-12 of the largest on both sides."""
+    import types
+
+    import numpy as np
+
+    from mfas_tpu_torch.core.layers import set_dropout_generator
+    from mfas_tpu_torch.engine.classifier import set_trainable
+
+    phase("(n4) the NTU fusion baselines, full width")
+    B, T, n_warm, n_timed = N4_EVAL
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    ske = torch.randn((B, 3, 32, 25, 2), device="cuda", generator=g)
+    out = {"eval": {}}
+    tk.reset_launch_counts()
+    for name, px in ([(n, N4_PX[0]) for n in BASELINES]
+                     + [("CentralNet", N4_PX[1])]):
+        args = types.SimpleNamespace(num_outputs=60, vid_len=(T, 32),
+                                     drpt=0.4, num_classes=60)
+        net = _baseline(torch, name, args, "cuda").eval()
+        clips = torch.randint(0, 256, (B, T, px, px, 3), dtype=torch.uint8,
+                              device="cuda", generator=g)
+        times = []
+        with torch.inference_mode():
+            for i in range(n_warm + n_timed):
+                if i == n_warm:
+                    torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                logits = net((tk.u8_normalize(clips, MEAN, STD), ske))
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+        check(logits.shape == (B, 60) and bool(torch.isfinite(logits).all()),
+              f"(n4) {name} at {px} px: logits {tuple(logits.shape)}")
+        ms = float(np.median(times[n_warm:])) * 1e3
+        r = {"forward_ms": ms, "eval_clips_per_s": B / ms * 1e3,
+             "peak_bytes": torch.cuda.max_memory_allocated()}
+        out["eval"][f"{name}_{px}px"] = r
+        print(f"(n4) {name} at {px} px, B={B}: eval forward {ms:.1f} ms, "
+              f"{r['eval_clips_per_s']:.2f} clips/s (K1 included), peak "
+              f"{r['peak_bytes'] / 2**30:.2f} GiB", flush=True)
+        del net, clips, logits
+        torch.cuda.empty_cache()
+    counts = dict(tk.launch_counts)
+    want = (len(BASELINES) + 1) * (n_warm + n_timed)
+    check(counts == {"u8_normalize": want, "u8_gather_normalize": 0},
+          f"(n4) launches {counts}, want {want} of K1")
+    out["launches"] = counts["u8_normalize"]
+
+    Bs, Ts, px = N4_STEP
+    rs = np.random.RandomState(SEED)
+    rgb = torch.from_numpy(rs.randn(Bs, Ts, px, px, 3)).double()
+    sk = torch.from_numpy(rs.randn(Bs, 3, 32, 25, 2)).double()
+    label = torch.tensor([7] * Bs)
+    # parameters outside the loss's graph (no gradient): GMU reads the
+    # skeleton's out7 and the video's pooled embedding, not their heads;
+    # CentralNet uses three of its four alphas per list. CentralNet's
+    # gradients that vanish analytically: alphas_c.0 weighs the zero
+    # starting maps, a conv bias ahead of a train-mode BatchNorm leaves
+    # with the batch mean
+    unused = {"LateFusion": set(),
+              "GMU": {f"{m}.{p}" for m in ("skeleton.fc7.0", "skeleton.fc8",
+                                            "visual.classifier")
+                      for p in ("weight", "bias")},
+              "CentralNet": {"alphas_a.3", "alphas_v.3", "alphas_c.3"}}
+    vanishing = {"alphas_c.0", "central_conv.0.0.bias",
+                 "central_conv.1.0.bias"}
+    out["card_vs_cpu"] = {}
+    for name in BASELINES:
+        args = types.SimpleNamespace(num_outputs=60, vid_len=(Ts, 32),
+                                     drpt=0.0, num_classes=60)
+        res = {}
+        for dev in ("cuda", "cpu"):
+            net = _baseline(torch, name, args, dev).double()
+            x = (rgb.to(dev), sk.to(dev))
+            with torch.no_grad():
+                fwd = net.eval()(x)
+            net.train()
+            set_dropout_generator(net, torch.Generator(device=dev))
+            set_trainable(net, net.central_params() if name == "CentralNet"
+                          else None)
+            torch.nn.functional.cross_entropy(net(x), label.to(dev)).backward()
+            res[dev] = (fwd.cpu(), {k: (None if p.grad is None
+                                        else p.grad.cpu())
+                                    for k, p in net.named_parameters()
+                                    if p.requires_grad})
+            del net
+        (fc, gc), (fp, gp) = res["cuda"], res["cpu"]
+        fwd_err = _rel_err(fc, fp)
+        check(fwd_err <= N4_TOL[0], f"(n4) {name} f64 forward card vs CPU "
+              f"{fwd_err:.3e} of max")
+        largest = max(v.abs().max().item() for v in gp.values()
+                      if v is not None)
+        errs, named = {}, []
+        for k, want_g in gp.items():
+            got_g = gc[k]
+            if k in unused[name]:
+                check(got_g is None and want_g is None,
+                      f"(n4) {name} {k}: a gradient where none flows")
+                named.append(k)
+                continue
+            if k in vanishing and name == "CentralNet":
+                check(max(got_g.abs().max().item(), want_g.abs().max().item())
+                      <= 1e-12 * largest, f"(n4) {name} {k} does not vanish")
+                named.append(k)
+                continue
+            errs[k] = _rel_err(got_g, want_g)
+        worst = max(errs, key=errs.get)
+        check(errs[worst] <= N4_TOL[1], f"(n4) {name} f64 gradient {worst} "
+              f"card vs CPU {errs[worst]:.3e} of its max")
+        out["card_vs_cpu"][name] = {"forward_err": fwd_err,
+                                    "grad_err_max": errs[worst],
+                                    "worst": worst, "tensors": len(errs),
+                                    "named_vanishing": named}
+        print(f"(n4) {name} card vs CPU, f64, B={Bs}, {Ts} frames, {px} px: "
+              f"forward {fwd_err:.3e} of max, {len(errs)} gradients within "
+              f"{errs[worst]:.3e} ({worst}); named {named}", flush=True)
+    return out
+
+
+def ntu_rest_phase(torch, tk, work, packed, train):
+    """Phase (n): (n1)-(n4); returns the numbers and the K1/K2 launches of
+    (n2)'s CLI run and (n4)'s forwards."""
+    t0 = time.time()
+    phase("(n1) the layout options at full-width shapes")
+    out = {"n1_layout_options": layout_options_full_width(torch)}
+    torch.cuda.empty_cache()
+    out["n2_channels_last"] = channels_last_training(torch, tk, work, packed,
+                                                     train)
+    out["n3_sweep"] = sweep_run(torch)
+    torch.cuda.empty_cache()
+    out["n4_baselines"] = baselines_phase(torch, tk)
+    out["seconds"] = time.time() - t0
+    print(f"phase (n): {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 HBM_BYTES_PER_S = 3.35e12
 
 
@@ -3990,6 +4394,8 @@ def main():
         tools = tools_phase(torch, tk, work, root, search)
         torch.cuda.empty_cache()
         multi = multi_gpu_phase(torch, work, train, search)
+        torch.cuda.empty_cache()
+        rest = ntu_rest_phase(torch, tk, work, packed, train)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -4011,13 +4417,16 @@ def main():
     print(json.dumps({"serving": serving, "nvidia_smi": smi}))
     print(json.dumps({"tools": tools, "nvidia_smi": smi}))
     print(json.dumps({"multi_gpu": multi, "nvidia_smi": smi}))
+    print(json.dumps({"ntu_rest": rest, "nvidia_smi": smi}))
     src = "mfas_tpu_torch/csrc/input_kernels.cu"
     # launches: K1's on its two main paths (streamed training, one per
     # train, dev and test batch; the default search, s1), K2's on the
     # resident training run; the AV-MNIST, MM-IMDB and CIFAR paths and the
     # operator tools' (t) launch neither. Phase (d) adds each rank's: K2 on
     # the replicated store ((d1), (d2)), K1 on the sharded store (d3) and
-    # in the sharded-bank search's extraction (d4).
+    # in the sharded-bank search's extraction (d4). Phase (n) adds K2 in
+    # --conv_channels_last training (n2) and K1 in the baselines' eval
+    # forwards (n4).
     # No single PyTorch call computes either kernel's function, so
     # library_ms is null (gather + K1 stands beside K2 in the kernel_times
     # line)
@@ -4041,14 +4450,17 @@ def main():
                 **{k: v["u8_normalize"] for k, v in others.items()},
                 **host,
                 **{k: v["u8_normalize"] for k, v in predicts.items()},
-                **multi["launches_by_path"]["u8_normalize"]}
+                **multi["launches_by_path"]["u8_normalize"],
+                "baselines_eval_n4": rest["n4_baselines"]["launches"]}
     k2_paths = {"found_training_resident_f32":
                 train["a_resident_f32"]["launches"],
                 **{k: v["u8_gather_normalize"] for k, v in others.items()},
                 **{k: 0 for k in host},
                 **{k: v["u8_gather_normalize"]
                    for k, v in predicts.items()},
-                **multi["launches_by_path"]["u8_gather_normalize"]}
+                **multi["launches_by_path"]["u8_gather_normalize"],
+                "found_training_channels_last_n2":
+                rest["n2_channels_last"]["launches"]}
     bound = input_kernel_bound_ms(4)
     f32 = ms["f32"]
     # ms and plain_ms under the spin timer; both timers' readings beside

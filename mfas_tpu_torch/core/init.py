@@ -63,6 +63,10 @@ def zeros(generator, shape, device):
     return torch.zeros(shape, dtype=torch.float32, device=device)
 
 
+def ones(generator, shape, device):
+    return torch.ones(shape, dtype=torch.float32, device=device)
+
+
 def kaiming_uniform(a: float = 0.0):
     """torch.nn.init.kaiming_uniform_ (fan_in, leaky_relu gain)."""
 
@@ -94,6 +98,36 @@ def xavier_uniform(generator, shape, device):
     fan_in, fan_out = _fan_in_out(shape)
     bound = math.sqrt(6.0 / (fan_in + fan_out))
     return _uniform(generator, shape, device, -bound, bound)
+
+
+def hcn_conv_weight(generator, shape, device):
+    """reference models/utils.py:9-16, conv branch: Glorot-uniform with
+    fan_in = prod(shape[1:4]) and fan_out = shape[0] * prod(shape[2:4])
+    (indices on the OIHW weight)."""
+    fan_in = math.prod(shape[1:4])
+    fan_out = shape[0] * math.prod(shape[2:4])
+    bound = math.sqrt(6.0 / (fan_in + fan_out))
+    return _uniform(generator, shape, device, -bound, bound)
+
+
+def orthogonal(generator, shape, device):
+    """jax.nn.initializers.orthogonal() (column axis -1): a matrix of
+    prod(shape[:-1]) rows and shape[-1] columns whose rows or columns,
+    whichever are fewer, are orthonormal, from the QR decomposition of a
+    standard normal draw with R's diagonal made positive."""
+    if len(shape) < 2:
+        raise ValueError("orthogonal initializer requires at least a 2D "
+                         "shape")
+    n_cols = shape[-1]
+    n_rows = math.prod(shape) // n_cols
+    a = torch.empty((max(n_rows, n_cols), min(n_rows, n_cols)),
+                    dtype=torch.float32)
+    a.normal_(0.0, 1.0, generator=generator)
+    q, r = torch.linalg.qr(a)
+    q = q * torch.sign(torch.diagonal(r))
+    if n_rows < n_cols:
+        q = q.T
+    return q.reshape(shape).to(device)
 
 
 def resnet_conv_weight(generator, shape, device):

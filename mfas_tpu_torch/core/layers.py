@@ -2,7 +2,8 @@
 
 ``nn.Module``s whose ``state_dict`` keys are the JAX package's tree paths:
 ``weight``, ``bias``, ``running_mean``, ``running_var``,
-``num_batches_tracked``, ``alpha_x``. Layers with parameters take a keyword
+``num_batches_tracked``, ``alpha_x``, ``alpha``, ``beta``, and ``0``, ``1``,
+... in a ``ParamList``. Layers with parameters take a keyword
 ``device`` and a ``torch.Generator`` (``generator``) that draws their initial
 values.
 """
@@ -188,6 +189,16 @@ class Sigmoid(nn.Module):
         return torch.sigmoid(x)
 
 
+class Tanh(nn.Module):
+    def forward(self, x):
+        return torch.tanh(x)
+
+
+class ELU(nn.Module):
+    def forward(self, x):
+        return torch.nn.functional.elu(x)
+
+
 class StochasticLayer(nn.Module):
     """A layer whose train-mode forward draws from ``self.generator``, a
     ``torch.Generator`` on the activations' device that the training engine
@@ -257,6 +268,16 @@ def set_data_group(model, group):
             m.shard = shard
 
 
+def to_channels_last(model):
+    """Give every 4-D and 5-D parameter of ``model`` (the convolution
+    weights) the channels-last memory format of its rank (NHWC / NDHWC
+    strides, the same shape and values), in place."""
+    formats = {4: torch.channels_last, 5: torch.channels_last_3d}
+    for p in model.parameters():
+        if p.dim() in formats:
+            p.data = p.data.contiguous(memory_format=formats[p.dim()])
+
+
 class GlobalPooling2D(nn.Module):
     """Mean over every dim after the channel one (aux_models.py:54-64)."""
 
@@ -285,6 +306,40 @@ class AvgPool2d(nn.Module):
     def forward(self, x):
         return F.avg_pool2d(x, self.kernel_size, self.stride, self.padding,
                             self.count_include_pad)
+
+
+class AvgPool3d(nn.Module):
+    def __init__(self, kernel_size, stride=None, padding=0):
+        super().__init__()
+        self.kernel_size, self.stride, self.padding = (kernel_size, stride,
+                                                       padding)
+
+    def forward(self, x):
+        return F.avg_pool3d(x, self.kernel_size, self.stride, self.padding)
+
+
+class AdaptiveAvgPool2d(nn.Module):
+    """AdaptiveAvgPool2d((1, 1)), the only output size the reference
+    uses."""
+
+    def __init__(self, output_size=(1, 1)):
+        super().__init__()
+        if tuple(output_size) != (1, 1):
+            raise ValueError(f"output_size {output_size}: only (1, 1) is "
+                             "used by the reference")
+
+    def forward(self, x):
+        return F.adaptive_avg_pool2d_1x1(x)
+
+
+class GlobalPooling1D(nn.Module):
+    def forward(self, x):
+        return F.global_avg_pool1d(x)
+
+
+class Flatten(nn.Module):
+    def forward(self, x):
+        return x.reshape(x.shape[0], -1)
 
 
 class Identity(nn.Module):
@@ -324,3 +379,60 @@ class AlphaScalarMultiplication(nn.Module):
     def forward(self, x, y):
         factor = torch.sigmoid(self.alpha_x.to(x.dtype))
         return x * factor, y * (1.0 - factor)
+
+
+class AlphaVectorMultiplication(nn.Module):
+    """x * sigmoid(alpha), alpha of shape (1, size_alpha) starting at 0
+    (aux_models.py:114-125)."""
+
+    def __init__(self, size_alpha, *, device):
+        super().__init__()
+        self.alpha = nn.Parameter(torch.zeros((1, int(size_alpha)),
+                                              device=device))
+
+    def forward(self, x):
+        return x * torch.sigmoid(self.alpha.to(x.dtype))
+
+
+class ParamList(nn.ParameterList):
+    """One parameter per shape, keyed ``0``, ``1``, ... (so a CentralNet's
+    keys are ``alphas_a.0``, ...), drawn by ``init`` (default U(0, 1), torch
+    ``rand``)."""
+
+    def __init__(self, shapes, init=None, *, device, generator):
+        init = init or I.uniform(0.0, 1.0)
+        super().__init__([nn.Parameter(init(generator, tuple(s), device))
+                          for s in shapes])
+
+
+ACTIVATIONS = ("LeakyReLU", "ELU", "ReLU", "Tanh", "Sigmoid", "Swish")
+
+
+class Activ(nn.Module):
+    """Activation by name (reference models/central/ops.py:6-30); "Swish"
+    is sigmoid(beta * x) * x with a learned ``beta`` starting at 0.5. Any
+    other name warns and passes x through, as the reference does."""
+
+    def __init__(self, activation: str, *, device):
+        super().__init__()
+        self.activation = activation
+        if activation not in ACTIVATIONS:
+            print("WARNING: REQUIRED ACTIVATION IS NOT DEFINED")
+        if activation == "Swish":
+            self.beta = nn.Parameter(torch.tensor([0.5], device=device))
+
+    def forward(self, x):
+        a = self.activation
+        if a == "LeakyReLU":
+            return torch.nn.functional.leaky_relu(x, 0.01)
+        if a == "ELU":
+            return torch.nn.functional.elu(x)
+        if a == "ReLU":
+            return torch.relu(x)
+        if a == "Tanh":
+            return torch.tanh(x)
+        if a == "Sigmoid":
+            return torch.sigmoid(x)
+        if a == "Swish":
+            return torch.sigmoid(self.beta.to(x.dtype) * x) * x
+        return x

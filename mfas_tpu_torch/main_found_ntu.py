@@ -14,9 +14,11 @@ skips training and evaluates a full checkpoint (``torch.save`` of a
 state_dict, or the JAX package's checkpoint writer). The backbones come from
 --ske_cp/--rgb_cp in --checkpointdir, or stay random with
 --random_backbones. Options: --bf16 (autocast compute, f32 parameters and
-Adam), --remat (recompute activations in backward), --train_state F
-[--resume] (per-epoch resumable state; a resume skips phase 1),
---save_checkpoint, --profile_dir D.
+Adam), --remat (recompute activations in backward), --conv_channels_last
+(the model's convolution weights and activations in NHWC / NDHWC memory
+format, core/functional.py; the checkpoints written stay contiguous),
+--train_state F [--resume] (per-epoch resumable state; a resume skips
+phase 1), --save_checkpoint, --profile_dir D.
 
 The input comes from the raw NTU layout under --datadir (AVIs decoded by
 cv2, skeletons parsed by the native C++ reader; the default), or from a
@@ -119,8 +121,9 @@ def parse_args(argv=None):
                         help='recompute the forward in backward (saves memory)')
     parser.add_argument('--conv_channels_last', action='store_true',
                         default=False,
-                        help='TPU convolution layout toggle of the JAX '
-                             'package; not carried by this port')
+                        help='convolutions in NHWC/NDHWC memory format '
+                             '(cuDNN\'s native layout); parameters keep '
+                             'their torch shapes')
     parser.add_argument('--packed_datadir', type=str, default='',
                         help='directory of packed stores, subdirs '
                              'train/dev/test; bypasses AVI decode')
@@ -165,14 +168,6 @@ FOUND_CONFS = {
 # the initial weights' seed (the JAX CLI's model.init(0)); dropout draws
 # from the engine's generator, seeded apart from it
 INIT_SEED = 0
-
-
-def _reject_unported(args):
-    """Stop on a flag whose feature the port does not carry."""
-    if args.conv_channels_last:
-        raise SystemExit("--conv_channels_last is a TPU convolution layout "
-                         "toggle of the JAX package; mfas_tpu_torch does not "
-                         "carry it (ROADMAP.md §1, 'Not ported')")
 
 
 def get_dataloaders(args, device, group=None):
@@ -358,14 +353,24 @@ class FoundRun:
 
 
 def main(argv=None, device=None):
+    """The CLI. --conv_channels_last holds the option for this call only
+    (the JAX CLI sets it for the rest of the process)."""
+    from mfas_tpu_torch.core.functional import layout_options
+
+    print("Training found NTU network")
+    args = parse_args(argv)
+    device = cli_device(device, "mfas_tpu_torch.main_found_ntu", args)
+    options = {"conv_channels_last": True} if args.conv_channels_last else {}
+    with layout_options(**options):
+        return _main(args, device)
+
+
+def _main(args, device):
+    from mfas_tpu_torch.core.layers import to_channels_last
     from mfas_tpu_torch.parallel.mesh import is_primary_process
     from mfas_tpu_torch.runtime import checkpoint as ckpt
     from mfas_tpu_torch.runtime.profiler import maybe_profile
 
-    print("Training found NTU network")
-    args = parse_args(argv)
-    _reject_unported(args)
-    device = cli_device(device, "mfas_tpu_torch.main_found_ntu", args)
     pm.initialize_from_args(args, device)
     group = pm.data_group_from_args(args)
     print("The configuration of this run is:")
@@ -384,6 +389,10 @@ def main(argv=None, device=None):
                            model.skenet, random_ok=args.random_backbones)
         ckpt.load_backbone(os.path.join(args.checkpointdir, args.rgb_cp),
                            model.rgbnet, random_ok=args.random_backbones)
+    if args.conv_channels_last:
+        # once, so no step copies a weight (gradients and Adam's moments
+        # take the parameters' strides)
+        to_channels_last(model)
 
     dataloaders = get_dataloaders(args, device, group)
     engine = make_engine(model, args, device, group,

@@ -1,11 +1,18 @@
-"""NTU RGB+D backbones (port of mfas_tpu/models/ntu.py: Visual, hcn_motion,
-Skeleton).
+"""NTU RGB+D backbones and hand-built fusion baselines (port of
+mfas_tpu/models/ntu.py).
 
   * Visual: inflated ResNet-50 over (B,T,W,H,C) video; returns the four
     stage maps, the (T,7,7)-average-pooled embedding, and logits.
   * Skeleton: HCN two-stream (position + temporal-difference motion
     re-interpolated to T frames) per-person co-occurrence CNN; streams
     concatenated, persons max-merged; returns 8 hidden taps + logits.
+  * LateFusion, GMU and CentralNet: the paper's baselines for MFAS on NTU
+    (reference models/central/ntu.py:186-297), with the JAX package's
+    repairs: GMU's gate is sized from the out7 tap it reads, CentralNet
+    aligns the skeleton maps to the video maps bilinearly and leaves its
+    backbones out of ``central_params`` instead of reloading them in every
+    forward. GMU and CentralNet hard-wire ResNet-50's widths (2048, 512),
+    so their Visual is always the full-width one.
 
 Persons are folded into the batch (one conv call over N*M samples); the
 max-merge afterwards equals the reference's per-person loop.
@@ -138,3 +145,126 @@ class Skeleton(nn.Module):
                   unfold_max(p3), unfold_max(out4), unfold_max(out5),
                   unfold_max(out6), out7, out8]
         return hidden, logits
+
+
+def _num_classes(args):
+    return getattr(args, "num_classes", args.num_outputs)
+
+
+class LateFusion(nn.Module):
+    """A linear layer over the concatenated logits of both backbones
+    (:186-200)."""
+
+    def __init__(self, args, *, device, generator):
+        super().__init__()
+        kw = dict(device=device, generator=generator)
+        self.skeleton = Skeleton(args, **kw)
+        self.visual = Visual(args, **kw)
+        n = _num_classes(args)
+        self.final_pred = L.Linear(n * 2, n, **kw)
+
+    def forward(self, inputs):
+        frames, skeleton = inputs
+        _, ske_logits = self.skeleton(skeleton)
+        vis_logits = self.visual(frames)[-1]
+        return self.final_pred(torch.cat([ske_logits, vis_logits], dim=-1))
+
+
+class GMU(nn.Module):
+    """Gated multimodal unit over the penultimate embeddings (:203-228).
+
+    The skeleton tap is ``hidden[-2]``, the flattened pre-fc7 person-max map
+    out7, ``256 * max((vid_len[1]//16)**2, 1)`` wide; the reference's
+    hard-wired 256 holds only for windows up to 16 frames (its default 32
+    crashes), so the gate and the reduction are sized from the tap."""
+
+    def __init__(self, args, *, device, generator):
+        super().__init__()
+        kw = dict(device=device, generator=generator)
+        self.skeleton = Skeleton(args, **kw)
+        self.visual = Visual(args, **kw)
+        n = _num_classes(args)
+        ske_dim = 256 * max((args.vid_len[1] // 16) ** 2, 1)
+        self.skel_redu = nn.Sequential(L.Linear(ske_dim, 128, **kw),
+                                       L.ReLU(), L.Dropout2d(args.drpt))
+        self.vis_redu = nn.Sequential(L.Linear(2048, 128, **kw), L.ReLU(),
+                                      L.Dropout2d(args.drpt))
+        self.ponderation = nn.Sequential(L.Linear(ske_dim + 2048, 1, **kw),
+                                         L.Sigmoid())
+        self.final_pred = L.Linear(128, n, **kw)
+
+    def forward(self, inputs):
+        frames, skeleton = inputs
+        hidden, _ = self.skeleton(skeleton)
+        ske = hidden[-2]                    # the flattened out7 map
+        vis = self.visual(frames)[-2]       # the pooled 2048-d embedding
+        z = self.ponderation(torch.cat([vis, ske], dim=1))
+        h = z * self.skel_redu(ske) + (1.0 - z) * self.vis_redu(vis)
+        return self.final_pred(h)
+
+
+class CentralNet(nn.Module):
+    """An alpha-weighted central column over the video's and the skeleton's
+    maps (:231-297). Four alphas per list, as in the reference; the fourth
+    is never used (it gets no gradient)."""
+
+    def __init__(self, args, *, device, generator):
+        super().__init__()
+        kw = dict(device=device, generator=generator)
+        self.skeleton = Skeleton(args, **kw)
+        self.visual = Visual(args, **kw)
+        n = _num_classes(args)
+        self.central_conv = nn.ModuleList([
+            nn.Sequential(L.Conv2d(512, 1024, kernel_size=4, stride=2,
+                                   padding=1, **kw),
+                          L.BatchNorm2d(1024, device=device), L.ReLU()),
+            nn.Sequential(L.Conv2d(1024, 2048, kernel_size=4, stride=2,
+                                   padding=1, **kw),
+                          L.BatchNorm2d(2048, device=device), L.ReLU(),
+                          L.AvgPool2d((7, 7))),
+            L.Linear(2048, n, **kw),
+        ])
+        self.alphas_a = L.ParamList([(1,)] * 4, **kw)
+        self.alphas_v = L.ParamList([(1,)] * 4, **kw)
+        self.alphas_c = L.ParamList([(1,)] * 4, **kw)
+
+    def central_params(self):
+        """Trainable prefixes: the central column and the alphas (the
+        backbones stay frozen)."""
+        return ["central_conv", "alphas_a", "alphas_v", "alphas_c"]
+
+    @staticmethod
+    def _fuse(m1, m2, central, a1, a2, ac):
+        # average frame-split 5D maps before fusing (:262-278)
+        if m1.dim() > 4:
+            m1 = m1.mean(dim=2)
+        if m2.dim() > 4:
+            m2 = m2.mean(dim=2)
+        if central.dim() > 4:
+            central = central.mean(dim=2)
+        if central.dim() == 4 and central.shape[-1] == 1:
+            central = central.reshape(central.shape[0], -1)
+        pad = m1.shape[1] - m2.shape[1]
+        if pad > 0:
+            m2 = torch.cat([m2, m2.new_zeros((m2.shape[0], pad)
+                                             + tuple(m2.shape[2:]))], dim=1)
+        # the skeleton's (T, V) maps cannot broadcast against the video's
+        # (the reference would crash here): align them bilinearly
+        if m1.dim() == 4 and m2.dim() == 4 and m1.shape[2:] != m2.shape[2:]:
+            m2 = F.interpolate_bilinear(m2, m1.shape[2:])
+        return central * ac + m1 * a1 + m2 * a2
+
+    def forward(self, inputs):
+        frames, skeleton = inputs
+        _, fm2, fm3, _, pooled, visual_pred = self.visual(frames)
+        hidden, skel_pred = self.skeleton(skeleton)
+        central = torch.zeros_like(fm2.mean(dim=2))
+        vis_feats = [fm2, fm3, pooled, visual_pred]
+        ske_feats = [hidden[1], hidden[2], hidden[-1], skel_pred]
+        for i in range(3):
+            a, v, c = (torch.sigmoid(alphas[i]).to(fm2.dtype) for alphas in
+                       (self.alphas_a, self.alphas_v, self.alphas_c))
+            central = self._fuse(vis_feats[i], ske_feats[i], central, v, a,
+                                 c)
+            central = self.central_conv[i](central)
+        return central

@@ -48,10 +48,11 @@ def load_state_dict(path) -> dict:
 
 
 def save(state_dict, path):
-    """``torch.save`` of ``state_dict`` as CPU tensors (the format
-    ``--test_cp`` and the JAX package's ``load_state_dict`` read)."""
-    torch.save({k: v.detach().to("cpu") for k, v in state_dict.items()},
-               path)
+    """``torch.save`` of ``state_dict`` as contiguous CPU tensors (the
+    format ``--test_cp`` and the JAX package's ``load_state_dict`` read,
+    whatever memory format the model's tensors have)."""
+    torch.save({k: v.detach().to("cpu").contiguous()
+                for k, v in state_dict.items()}, path)
 
 
 def load_backbone(path, module, random_ok=False):

@@ -1,6 +1,7 @@
 """``--profile_dir`` (port of mfas_tpu/runtime/profiler.py): an opt-in
 ``torch.profiler`` trace of the run, while the CLI keeps its summary lines.
-``SectionTimer`` splits a run's wall time into named sections.
+``SectionTimer`` splits a run's wall time into named sections;
+``StepTimer`` keeps per-step wall times and their summary.
 ``profile_summary`` reads a trace's kernels: the device's busy time, device
 time by kernel class (``KERNEL_CLASSES``) and the largest kernels
 (``tools/profile_step.py``, ``chip_smoke.py``)."""
@@ -12,6 +13,7 @@ import json
 import os
 import time
 
+import numpy as np
 import torch
 
 
@@ -33,6 +35,35 @@ class SectionTimer:
                 torch.cuda.synchronize(self.device)
             self.seconds[name] = (self.seconds.get(name, 0.0)
                                   + time.perf_counter() - t0)
+
+
+class StepTimer:
+    """Host wall time per step, ``start()`` to ``stop()``. On a CUDA device
+    ``stop`` synchronizes first, so a step holds the device work it
+    launched."""
+
+    def __init__(self, device="cpu"):
+        self.device = torch.device(device)
+        self.times = []
+        self._t0 = None
+
+    def start(self):
+        self._t0 = time.perf_counter()
+
+    def stop(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.times.append(time.perf_counter() - self._t0)
+
+    def summary(self):
+        """{} before any step, else the count, mean, median and 95th
+        percentile in seconds (the JAX package's keys)."""
+        if not self.times:
+            return {}
+        arr = np.asarray(self.times)
+        return {"steps": len(arr), "mean_s": float(arr.mean()),
+                "p50_s": float(np.percentile(arr, 50)),
+                "p95_s": float(np.percentile(arr, 95))}
 
 
 @contextlib.contextmanager

@@ -33,7 +33,9 @@ def _named_trainable(model, optimizer):
 
 
 def _cpu(t):
-    return t.detach().to("cpu", copy=True)
+    """A contiguous CPU copy (a channels-last tensor is written in the
+    layout every reader expects)."""
+    return t.detach().to("cpu", copy=True).contiguous()
 
 
 def save_train_state(path, *, model, best_state, optimizer, scheduler, epoch,
@@ -88,8 +90,10 @@ def load_train_state(path, *, model, optimizer, scheduler):
     best = {k: flat[f"best/{k}"].to(device) for k in keys}
 
     state = {}
-    for i, (name, _) in enumerate(_named_trainable(model, optimizer)):
-        m, v = flat[f"opt/m/{name}"], flat[f"opt/v/{name}"]
+    for i, (name, p) in enumerate(_named_trainable(model, optimizer)):
+        # the moments take the parameter's device and memory format
+        m, v = (torch.empty_like(p).copy_(flat[f"opt/{key}/{name}"])
+                for key in ("m", "v"))
         step = flat.get("opt/step", flat.get(f"opt/step/{name}"))
         if step is None:
             raise KeyError(f"{path}: no opt/step for {name}")

@@ -50,9 +50,12 @@ def _args(**kw):
     return types.SimpleNamespace(**d)
 
 
-def build(what, B, img, bf16, device):
+def build(what, B, img, bf16, device, arch=None, channels_last=False):
     """-> a function that runs one iteration of ``what`` and returns a
-    scalar tensor of its result."""
+    scalar tensor of its result. ``arch``: overrides of the found net's
+    arguments (``resnet3d_layers``, ``resnet3d_base_width``: the shrink
+    knobs of a test); ``channels_last``: the found net's weights in
+    channels-last memory format (core/layers.py::to_channels_last)."""
     import torch
 
     rs = np.random.RandomState(0)
@@ -79,9 +82,12 @@ def build(what, B, img, bf16, device):
                                                   set_trainable)
     from mfas_tpu_torch.fusion.ntu import Searchable_Skeleton_Image_Net
 
-    args = _args()
+    args = _args(**(arch or {}))
     model = Searchable_Skeleton_Image_Net(args, np.array(FOUND_CONF),
                                           device=device, generator=gen)
+    if channels_last:
+        from mfas_tpu_torch.core.layers import to_channels_last
+        to_channels_last(model)
     engine = ClassifierEngine(
         model, device, multitask=True, input_keys=("rgb", "ske"),
         compute_dtype=torch.bfloat16 if bf16 else None)

@@ -99,6 +99,19 @@ def test_interpolate_bilinear_upsampling():
           TF.interpolate_bilinear(torch.from_numpy(x), (32, 25)))
 
 
+@pytest.mark.parametrize("src,dst", [((32, 32), (28, 28)),
+                                     ((16, 16), (14, 14))],
+                         ids=["32to28", "16to14"])
+def test_interpolate_bilinear_downsampling(src, dst):
+    """CentralNet at 224 px aligns the skeleton maps to the video's by
+    downsampling: jax.image.resize(linear, antialias=False) and torch
+    bilinear agree there too."""
+    x = randn(1, 512, *src)
+    close(JF.interpolate_bilinear(jnp.asarray(x), dst),
+          TF.interpolate_bilinear(torch.from_numpy(x), dst), rtol=0,
+          atol=2e-6 * np.abs(x).max())
+
+
 @pytest.mark.parametrize("shape", [(3, 5, 4, 4), (3, 5, 2, 3, 4), (3, 5)],
                          ids=["4d", "5d", "2d"])
 def test_global_avg_pool2d(shape):

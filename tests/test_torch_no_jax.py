@@ -77,5 +77,10 @@ def test_port_imports_neither_jax_nor_mfas_tpu():
                  "mfas_tpu_torch.tools.parity_kit",
                  "mfas_tpu_torch.tools.profile_step",
                  "mfas_tpu_torch.parallel",
-                 "mfas_tpu_torch.parallel.mesh"):
+                 "mfas_tpu_torch.parallel.mesh",
+                 "mfas_tpu_torch.core.init",
+                 "mfas_tpu_torch.models.ntu",
+                 "mfas_tpu_torch.runtime.profiler",
+                 "mfas_tpu_torch.runtime.train_state",
+                 "mfas_tpu_torch.tools.bf16_sweep"):
         assert name in res["modules"]
