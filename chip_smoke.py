@@ -13,7 +13,12 @@
 5. times K1, K2, torch gather + K1 and the plain versions (median of CUDA
    event timings, L2 flushed between launches; under two timers, with and
    without a 1 ms spin of the card before each timed call, time_ms), f32
-   and bf16;
+   and bf16; beside K1, its yardstick torch.addcmul(bias, x_u8, scale,
+   out=...), the one PyTorch call that computes K1's function (the port
+   never calls it), first checked against K1's plain version (f32 within
+   1e-6 of its max |value|, bf16 within one bf16 ulp; library_err); prints
+   the kernel rule's verdict, K1 against the call and each kernel's share
+   of its bound;
 6. the found-NTU --test_cp slice end to end at full width (ResNet-50 3-4-6-3
    at base width 64, HCN over 32 frames, found conf 4, random weights from a
    seed): a synthetic packed store at 256x256 (24 frames, 300 skeleton
@@ -166,9 +171,11 @@
    ranks, within 2 clips of 50 of (a)'s, K1 on each rank and K2 never, only
    rank 0's --save_checkpoint, which loads strictly; (d4)
    ``main_searchable_ntu --use_dataparallel --cache_features --batchnorm
-   --shard_feature_bank`` cut to one search iteration: the same results on
-   both ranks, first-step accuracies within 0.02 of (s4)'s first run's, and
-   a resume from rank 0's state that agrees; (d5) the CIFAR found net with
+   --shard_feature_bank`` cut to one search iteration on its own store with
+   a class signal (write_d4_store, 4 classes): the same results on both
+   ranks, the first-step confs and accuracies within 0.02 of the same
+   search on one rank, at least 3 distinct first-step accuracies on each,
+   and a resume from rank 0's state that agrees; (d5) the CIFAR found net with
    --drop_path 0.1, 3 steps at B=128: the ranks' parameters bitwise equal
    after each. No rate of (d2)-(d5) is a scaling figure;
 18. the rest of the NTU vertical (phase (n), ntu_rest_phase): (n1) each
@@ -346,13 +353,26 @@ def kernel_phases(torch, tk):
                     f"K2 store {tuple(K2_STORE)} B={B} T={T} {dt}")
         err["u8_gather_normalize"] = max(err["u8_gather_normalize"], e)
 
+    phase("K1's yardstick torch.addcmul vs plain")
+    scale, bias = tk._device_affine(MEAN, STD, x.device)
+    lib = {dt: torch.empty(x.shape, dtype=dt, device=dev)
+           for dt in (torch.float32, torch.bfloat16)}
+    err["u8_normalize_library"] = {
+        str(dt)[6:]: library_err(torch, torch.addcmul(bias, x, scale,
+                                                      out=y),
+                                 tk.u8_normalize_plain(x, MEAN, STD,
+                                                       out_dtype=dt))
+        for dt, y in lib.items()}
+
     phase("kernel times")
     n = B * T * K1_SHAPE[2] * K1_SHAPE[3] * K1_SHAPE[4]
     ms = {}
     for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         moved = n * (1 + dt.itemsize)   # uint8 read + output written
+        y = lib[dt]
         fns = {
             "K1": lambda: tk.u8_normalize(x, MEAN, STD, out_dtype=dt),
+            "K1_library": lambda: torch.addcmul(bias, x, scale, out=y),
             "K1_plain": lambda: tk.u8_normalize_plain(x, MEAN, STD,
                                                       out_dtype=dt),
             "K1_plain_copying": lambda: plain_copying(torch, tk, x, dt),
@@ -377,6 +397,36 @@ def kernel_phases(torch, tk):
     print("kernel_times_ms " + json.dumps(ms))
     card_state("after kernel times")
     return err, ms
+
+
+def library_err(torch, got, want):
+    """torch.addcmul's output against K1's plain version, checked to be the
+    same function before it is timed as K1's yardstick: f32 within 1e-6 of
+    the plain output's max |value| (the call may contract the affine into
+    one FMA, which rounds once where the plain version rounds twice), bf16
+    within one bf16 ulp of the plain output at every element. Returns the
+    max abs error."""
+    torch.cuda.synchronize()
+    check(got.dtype == want.dtype and got.shape == want.shape,
+          f"addcmul: {got.dtype}{tuple(got.shape)} vs "
+          f"{want.dtype}{tuple(want.shape)}")
+    w = want.float()
+    diff = (got.float() - w).abs()
+    err = diff.max().item()
+    if want.dtype == torch.float32:
+        limit = 1e-6 * w.abs().max().item()
+        ok = err <= limit
+    else:
+        # |w| in [2^(e-1), 2^e): bf16's 8 significant bits, ulp 2^(e-8)
+        limit = torch.ldexp(torch.ones_like(w), torch.frexp(w).exponent - 8)
+        ok = bool((diff <= limit).all())
+    check(ok, f"addcmul {want.dtype}: max abs err {err} from the plain "
+          "version, beyond the yardstick's tolerance: it computes another "
+          "function")
+    print(f"K1 yardstick torch.addcmul {tuple(got.shape)} {want.dtype}: max "
+          f"abs err {err} from the plain version (f32: within 1e-6 of its "
+          f"max |value|; bf16: within one bf16 ulp)")
+    return err
 
 
 def plain_copying(torch, tk, x, dt):
@@ -3331,6 +3381,21 @@ D_TIMEOUT = 300          # seconds, per multi-process run (and gloo's)
 # float64 gradients no worse than one rank's f32 ones
 D5_STEPS = 3
 D5_ARGV = ["--drop_path", "0.1"]
+# (d4)'s own store: D4_CLASSES classes, a train split of 40 and a dev split
+# of 60 clips (10 and 15 of each class; K1 runs 2 + 3 times a rank, as on
+# (s4)'s store), every clip's frames shifted by its class's colour and its
+# skeleton by its class's pose, each with a per-clip jitter of the same
+# size so the classes overlap. The two ranks' bank is not bitwise one
+# rank's: each rank runs the bf16 ResNet-50 on its 10 of a batch's 20 rows,
+# and cuDNN's kernels for that shape round the visual features differently
+# (within a bf16 ulp). At this signal no first-step accuracy moves by that;
+# at twice it, some moved by more than (d4)'s 0.02 (PERF.md §7)
+D4_CLASSES = 4
+D4_SPLITS = (("trainexp", 40), ("dev", 60))
+D4_COLOUR = 24.0         # grey levels, per channel, of a class's colour
+D4_POSE = 0.15           # of a class's pose, per joint coordinate
+D4_NOISE = 48            # grey levels of each pixel's uniform noise
+D4_MIN_DISTINCT = 3      # distinct first-step accuracies each rank needs
 
 
 def _free_port():
@@ -3691,37 +3756,93 @@ def rank_d3(torch, rank, world, addr, work):
             "peak_bytes": torch.cuda.max_memory_allocated()}
 
 
-def rank_d4(torch, rank, world, addr, work):
-    """``main_searchable_ntu --use_dataparallel --cache_features
-    --batchnorm --shard_feature_bank`` cut to one search iteration, with a
-    search state, then resumed from it: the first step's accuracies, the
-    printed results, K1's launches."""
+def write_d4_store(work):
+    """(d4)'s packed store, in the pack_ntu layout, from SEED: labels
+    balanced over D4_CLASSES; each clip's frames are grey 128 plus its
+    class's colour (D4_COLOUR times a fixed direction per class) plus a
+    per-clip colour jitter of the same size plus per-pixel uniform noise of
+    +-D4_NOISE; its skeleton is (s4)'s N(0, 0.3) noise plus its class's pose
+    (D4_POSE times a fixed N(0, 1) offset per joint coordinate and person)
+    plus a per-clip jitter of the same size. Random frozen backbones then
+    pool features that differ by class, so the first EPNAS step's
+    candidates score apart, where on (s4)'s store every one scores 0 or
+    1/60."""
+    import numpy as np
+
+    store = os.path.join(work, "d4_search")
+    rs = np.random.RandomState(SEED + 4)
+    colours = rs.uniform(-1, 1, (D4_CLASSES, 3)) * D4_COLOUR
+    poses = rs.randn(D4_CLASSES, 3, 1, 25, 2) * D4_POSE
+    frames, h, w, skel_frames = 24, 256, 256, 300
+    for split, n in D4_SPLITS:
+        out = os.path.join(store, split)
+        os.makedirs(out)
+        labels = rs.permutation(np.arange(n) % D4_CLASSES).astype(np.int32)
+        rgb = np.lib.format.open_memmap(os.path.join(out, "rgb.npy"), "w+",
+                                        np.uint8, (n, frames, h, w, 3))
+        for i, c in enumerate(labels):
+            base = 128.0 + colours[c] + rs.uniform(-1, 1, 3) * D4_COLOUR
+            noise = rs.randint(-D4_NOISE, D4_NOISE + 1, (frames, h, w, 3),
+                               dtype=np.int16)
+            rgb[i] = np.clip(noise + np.round(base).astype(np.int16), 0,
+                             255).astype(np.uint8)
+        rgb.flush()
+        del rgb
+        ske = (rs.randn(n, 3, skel_frames, 25, 2) * 0.3 + poses[labels]
+               + rs.randn(n, 3, 1, 25, 2) * D4_POSE).astype(np.float32)
+        np.save(os.path.join(out, "ske.npy"), ske)
+        np.save(os.path.join(out, "ske_len.npy"),
+                np.full((n,), skel_frames, np.int32))
+        np.save(os.path.join(out, "labels.npy"), labels)
+        with open(os.path.join(out, "meta.json"), "w") as f:
+            json.dump({"n": n, "frames": frames, "h": h, "w": w,
+                       "max_skel_frames": skel_frames,
+                       "stage": "synthetic"}, f)
+    return store
+
+
+def d4_argv(work):
+    """(d4)'s search on one rank: ``--cache_features --batchnorm`` cut to
+    one search iteration on write_d4_store's store."""
+    return ["--packed_datadir", os.path.join(work, "d4_search"),
+            "--checkpointdir", work, *SEARCH_ARGV, "--num_outputs",
+            str(D4_CLASSES), "--cache_features", "--batchnorm",
+            "--search_iterations", "1"]
+
+
+def d4_search(torch, argv):
+    """One in-process (d4) search: K1's launches (counted from 0), the
+    seconds, the candidates, the first step's confs and accuracies, the
+    printed listing."""
     import contextlib
     import io
 
     from mfas_tpu_torch import main_searchable_ntu as smain
     from mfas_tpu_torch.ops import input_kernels as tk
 
-    state = os.path.join(work, "d4_state.pkl")
-    argv = ["--packed_datadir", os.path.join(work, "search"),
-            "--checkpointdir", work, *SEARCH_ARGV, "--cache_features",
-            "--batchnorm", "--search_iterations", "1", "--use_dataparallel",
-            "--shard_feature_bank", "--search_state", state]
-    out = {}
-    for name, extra in (("first", []), ("resumed", ["--resume_search"])):
-        buf = io.StringIO()
-        tk.reset_launch_counts()
-        with contextlib.redirect_stdout(buf):
-            run = smain.main(argv + extra)
-        text = buf.getvalue()
-        out[name] = {
-            "launches": dict(tk.launch_counts), "seconds": run.seconds,
+    buf = io.StringIO()
+    tk.reset_launch_counts()
+    with contextlib.redirect_stdout(buf):
+        run = smain.main(argv)
+    text = buf.getvalue()
+    return {"launches": dict(tk.launch_counts), "seconds": run.seconds,
             "candidates": run.candidates,
             "first_step": [[c, a] for L, entries in run.data.state()
                            if L == 1 for c, a in entries],
             "listing": text.split("Now listing best architectures\n")[1]
             .splitlines()}
-    return out
+
+
+def rank_d4(torch, rank, world, addr, work):
+    """(d4) with ``--use_dataparallel --shard_feature_bank`` and a search
+    state, then resumed from it: the first step's accuracies, the printed
+    results, K1's launches."""
+    argv = d4_argv(work) + ["--use_dataparallel", "--shard_feature_bank",
+                            "--search_state",
+                            os.path.join(work, "d4_state.pkl")]
+    return {name: d4_search(torch, argv + extra)
+            for name, extra in (("first", []),
+                                ("resumed", ["--resume_search"]))}
 
 
 def rank_d5(torch, rank, world, addr, work):
@@ -3765,7 +3886,7 @@ RANK_CASES = {"d1": rank_d1, "d2": rank_d2, "d3": rank_d3, "d4": rank_d4,
               "d5": rank_d5}
 
 
-def multi_gpu_phase(torch, work, train, search):
+def multi_gpu_phase(torch, work, train):
     """(d1)-(d5); returns the measured numbers and each run's kernel
     launches, by path."""
     import numpy as np
@@ -3801,6 +3922,12 @@ def multi_gpu_phase(torch, work, train, search):
     (ref,), out["d2_one_rank_seconds"] = run_rank_processes(["d2"], 1,
                                                              work)
     ref = ref["d2"]
+    phase("(d4) its class-signal store and the one-rank search")
+    t1 = time.time()
+    write_d4_store(work)
+    print(f"(d4) store written in {time.time() - t1:.1f} s", flush=True)
+    d4_one = d4_search(torch, d4_argv(work))
+    torch.cuda.empty_cache()
     # one pair of rank processes runs (d2)-(d5) in turn
     phase(f"(d2)-(d5) over two ranks ({TIME_SHARING})")
     os.makedirs(os.path.join(work, "d3"))
@@ -3872,12 +3999,25 @@ def multi_gpu_phase(torch, work, train, search):
     out["d3"] = {"ranks": d3, "one_rank_model_acc": want_acc}
 
     want_first = dict((tuple(map(tuple, c)), a)
-                      for c, a in search["s4_first"]["first_step"])
+                      for c, a in d4_one["first_step"])
+    want_k1 = sum(-(-n // 20) for _, n in D4_SPLITS)
+    check(d4_one["launches"] == {"u8_normalize": want_k1,
+                                 "u8_gather_normalize": 0},
+          f"(d4) one rank: launches {d4_one['launches']}, want {want_k1} "
+          "of K1")
+    for r in [{"first": d4_one}] + d4:
+        first = r["first"]
+        distinct = len(set(a for _, a in first["first_step"]))
+        check(distinct >= D4_MIN_DISTINCT,
+              f"(d4) {distinct} distinct first-step accuracies, want "
+              f"{D4_MIN_DISTINCT}: the store's class signal did not reach "
+              f"the candidates ({first['first_step']})")
+        first["first_step_distinct"] = distinct
     for r in d4:
         first = r["first"]
-        check(first["launches"] == {"u8_normalize": 5,
+        check(first["launches"] == {"u8_normalize": want_k1,
                                     "u8_gather_normalize": 0},
-              f"(d4) launches {first['launches']}, want 5 of K1")
+              f"(d4) launches {first['launches']}, want {want_k1} of K1")
         # the state holds the whole cut search: the resume trains nothing
         # and lists what the first run found
         check(r["resumed"]["listing"] == first["listing"]
@@ -3893,12 +4033,18 @@ def multi_gpu_phase(torch, work, train, search):
     check(out["d4_first_step_err_max"] <= 0.02,
           f"(d4) first-step accuracies {out['d4_first_step_err_max']} from "
           "the one-rank run's")
+    accs = [a for _, a in d4[0]["first"]["first_step"]]
     print(f"(d4) {d4[0]['first']['candidates']} candidates per rank in "
-          f"{d4[0]['first']['seconds']:.1f} s; first step within "
+          f"{d4[0]['first']['seconds']:.1f} s (one rank "
+          f"{d4_one['seconds']:.1f} s); first-step accuracies "
+          f"{min(accs):.4f}-{max(accs):.4f}, "
+          f"{[r['first']['first_step_distinct'] for r in d4]} distinct per "
+          f"rank ({d4_one['first_step_distinct']} on one), within "
           f"{out['d4_first_step_err_max']:.4f} of one rank's; both ranks "
           f"printed {d4[0]['first']['listing'][:1]}...; the resume agreed "
           f"({TIME_SHARING})", flush=True)
     out["d4"] = d4
+    out["d4_one_rank"] = d4_one
 
     for r in d5:
         check(r["rows"] == 64 and r["bitwise_after_each_step"] ==
@@ -3916,7 +4062,9 @@ def multi_gpu_phase(torch, work, train, search):
                r["launches"]["u8_normalize"] for i, r in enumerate(d3)},
             **{f"multi_gpu_d4_sharded_bank_search_rank{i}":
                r["first"]["launches"]["u8_normalize"]
-               for i, r in enumerate(d4)}},
+               for i, r in enumerate(d4)},
+            "multi_gpu_d4_search_one_rank":
+            d4_one["launches"]["u8_normalize"]},
         "u8_gather_normalize": {
             **{f"multi_gpu_d1_world1_{k}": v["u8_gather_normalize"]
                for k, v in d1["launches"].items()},
@@ -4393,7 +4541,7 @@ def main():
         torch.cuda.empty_cache()
         tools = tools_phase(torch, tk, work, root, search)
         torch.cuda.empty_cache()
-        multi = multi_gpu_phase(torch, work, train, search)
+        multi = multi_gpu_phase(torch, work, train)
         torch.cuda.empty_cache()
         rest = ntu_rest_phase(torch, tk, work, packed, train)
     finally:
@@ -4424,12 +4572,15 @@ def main():
     # resident training run; the AV-MNIST, MM-IMDB and CIFAR paths and the
     # operator tools' (t) launch neither. Phase (d) adds each rank's: K2 on
     # the replicated store ((d1), (d2)), K1 on the sharded store (d3) and
-    # in the sharded-bank search's extraction (d4). Phase (n) adds K2 in
+    # in the sharded-bank search's extraction (d4, each rank and the
+    # one-rank reference). Phase (n) adds K2 in
     # --conv_channels_last training (n2) and K1 in the baselines' eval
     # forwards (n4).
-    # No single PyTorch call computes either kernel's function, so
-    # library_ms is null (gather + K1 stands beside K2 in the kernel_times
-    # line)
+    # One PyTorch call computes K1's function: torch.addcmul(bias, x_u8,
+    # scale), timed beside K1 as its yardstick (library_ms) and called
+    # nowhere in the port. None computes K2's: a gather and then the
+    # affine are two calls, so its library_ms is null (gather + K1 stands
+    # beside K2 in the kernel_times line)
     others = {f"{name}_phase": {k: phase_out["input_kernel_launches"][k]
                                 for k in ("u8_normalize",
                                           "u8_gather_normalize")}
@@ -4463,6 +4614,16 @@ def main():
                 rest["n2_channels_last"]["launches"]}
     bound = input_kernel_bound_ms(4)
     f32 = ms["f32"]
+    # the port's rule for a kernel: no slower than one PyTorch call for the
+    # same function, and above half its bound
+    print("kernel rule verdict (spin timer): " + "; ".join(
+        f"{name} K1 {t['K1']['spin'] * 1e3:.1f} us vs torch.addcmul "
+        f"{t['K1_library']['spin'] * 1e3:.1f} us ("
+        + ("no slower" if t["K1"]["spin"] <= t["K1_library"]["spin"]
+           else "SLOWER")
+        + f"), K1 at {100 * t['bound'] / t['K1']['spin']:.0f} % and K2 at "
+        f"{100 * t['bound'] / t['K2']['spin']:.0f} % of the bound"
+        for name, t in ms.items()))
     # ms and plain_ms under the spin timer; both timers' readings beside
     print(json.dumps({"kernels": [
         {"name": "u8_normalize", "route": "cuda", "source": src,
@@ -4470,7 +4631,10 @@ def main():
          "launches": sum(k1_paths.values()), "launches_by_path": k1_paths,
          "max_abs_err": err["u8_normalize"], "ms": f32["K1"]["spin"],
          "plain_ms": f32["K1_plain"]["spin"], "bound_ms": bound,
-         "bound_by": "bytes", "library_ms": None,
+         "bound_by": "bytes", "library_ms": f32["K1_library"]["spin"],
+         "library": "torch.addcmul",
+         "library_ms_by_dtype": {k: t["K1_library"] for k, t in ms.items()},
+         "library_max_abs_err": err["u8_normalize_library"],
          "ms_by_timer": f32["K1"], "plain_ms_by_timer": f32["K1_plain"]},
         {"name": "u8_gather_normalize", "route": "cuda", "source": src,
          "replaces": "mfas_tpu/ops/input_kernels.py:174",

@@ -56,6 +56,18 @@ CH = 4
 GEN = torch.Generator
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: under a parallel test runner every split op
+    waits on threads the other workers' processes hold."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _args(**kw):
     d = dict(channels=CH, num_outputs=10, inner_representation_size=16,
              drpt=0.0, multitask=True, alphas=False, fusetype="cat",

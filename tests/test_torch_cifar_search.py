@@ -60,6 +60,18 @@ SEARCH = [*SMALL, "--epochs", "1", "--epochs_surrogate", "5",
 SUBSET = jfc.get_possible_layer_configurations(0)[::14]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: under a parallel test runner every split op
+    waits on threads the other workers' processes hold."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def root(tmp_path_factory):
     root = tmp_path_factory.mktemp("cifar_search")

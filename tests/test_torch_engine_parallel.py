@@ -38,6 +38,18 @@ from tests.torch_ranks import (avmnist_engine_run, cifar_engine_step,
 CONF = np.array([[4, 2, 0]])
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: under a parallel test runner every split op
+    waits on threads the other workers' processes hold."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _jax_avmnist(inp, mesh):
     net = fa.Searchable_Audio_Image_Net(inp["args"], CONF)
     loaders = {"train": ArrayLoader(inp["data"], 8, shuffle=False),

@@ -37,6 +37,18 @@ from mfas_tpu_torch.tools import predict as tpredict
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: under a parallel test runner every split op
+    waits on threads the other workers' processes hold."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _jax_tool(name):
     """tools/<name>.py of the JAX package as a module, its compile cache
     hook a no-op (the tests keep their own XLA cache)."""

@@ -37,6 +37,18 @@ ARGV = ["--conf", "0", "--channels", "4", "--batchsize", "8",
 CONF0_NAME = "final_avmnist_conf_[[4_2_1]_[4_2_0]]_"
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: under a parallel test runner every split op
+    waits on threads the other workers' processes hold."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def fx(tmp_path_factory):
     root = tmp_path_factory.mktemp("found_avmnist")

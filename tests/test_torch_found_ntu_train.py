@@ -84,6 +84,18 @@ PATHS = {"packed": "--device_input_normalize", "resident": "--hbm_resident"}
 CONF4_NAME = "final_conf_[[3_1_1]_[1_3_0]_[1_1_1]_[3_3_0]]_"
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: under a parallel test runner every split op
+    waits on threads the other workers' processes hold."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def fx(tmp_path_factory):
     root = tmp_path_factory.mktemp("found_ntu_train")

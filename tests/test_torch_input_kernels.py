@@ -90,6 +90,31 @@ def test_u8_normalize_plain_is_two_roundings():
 
 
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_addcmul_computes_k1s_function(dt):
+    """torch.addcmul(bias, x_u8, scale) is K1's function in one PyTorch
+    call (uint8 times f32 promotes to f32; a bf16 out= rounds that f32
+    once): the yardstick chip_smoke.py times beside K1, which the port
+    never calls. f32 within 1e-6 of the plain output's max |value| (the
+    call may contract the affine into one FMA), bf16 within one bf16 ulp."""
+    _, tdt = DTYPES[dt]
+    x = torch.from_numpy(
+        np.random.RandomState(0).randint(0, 256, (2, 6, 8, 8, 3), np.uint8))
+    scale, bias = (torch.from_numpy(a)
+                   for a in tk._affine_from_stats(MEAN, STD))
+    got = torch.addcmul(bias, x, scale, out=torch.empty(x.shape, dtype=tdt))
+    want = tk.u8_normalize_plain(x, MEAN, STD, out_dtype=tdt)
+    assert got.dtype == tdt and got.shape == want.shape
+    w = want.float()
+    diff = (got.float() - w).abs()
+    if tdt == torch.float32:
+        assert diff.max() <= 1e-6 * w.abs().max()
+    else:
+        # |w| in [2^(e-1), 2^e): bf16 keeps 8 significant bits
+        ulp = torch.ldexp(torch.ones_like(w), torch.frexp(w).exponent - 8)
+        assert bool((diff <= ulp).all())
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
 def test_u8_gather_normalize_matches_jax_pallas(dt):
     jdt, tdt = DTYPES[dt]
     store = np.random.RandomState(4).randint(0, 256, (3, 5, 32, 32, 3),

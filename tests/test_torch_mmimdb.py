@@ -65,6 +65,18 @@ GEN = torch.Generator
 POSTER = 32      # VGG-19's five pools take 32x32 to 1x1
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: under a parallel test runner every split op
+    waits on threads the other workers' processes hold."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _args(**kw):
     d = dict(num_outputs=23, channels=16, fusetype="cat", fusingmix="13,24")
     d.update(kw)

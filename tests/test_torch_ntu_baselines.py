@@ -29,6 +29,18 @@ from mfas_tpu_torch.runtime.checkpoint import state_dict_from_numpy
 EVAL_TOL = 1e-5
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: under a parallel test runner every split op
+    waits on threads the other workers' processes hold."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def ntu_args(**kw):
     d = dict(num_outputs=60, vid_len=(2, 32), drpt=0.2, num_classes=60)
     d.update(kw)

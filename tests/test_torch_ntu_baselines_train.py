@@ -24,6 +24,18 @@ from tests.test_torch_ntu_baselines import GEOMETRY, _max_err, _pair
 GRAD_TOL = 1e-9
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: under a parallel test runner every split op
+    waits on threads the other workers' processes hold."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _f64(tree):
     return jax.tree_util.tree_map(
         lambda a: a.astype(jnp.float64)

@@ -49,6 +49,18 @@ SMALL = ["--conf", "4", "--num_outputs", "3", "--batchsize", "2",
          "--resnet3d_base_width", "8", "--j", "2"]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: under a parallel test runner every split op
+    waits on threads the other workers' processes hold."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def fx(tmp_path_factory):
     """subjects 1 (train), 2 (dev), 3 (test), 3 actions each: 3 clips per

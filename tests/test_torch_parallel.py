@@ -44,6 +44,18 @@ from tests.test_torch_search_population import (CONFS, _jax_side,
 from tests.torch_ranks import run_ranks
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: under a parallel test runner every split op
+    waits on threads the other workers' processes hold."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def test_partial_dist_flags_rejected():
     args = types.SimpleNamespace(dist_coordinator=None,
                                  dist_num_processes=2, dist_process_id=0)

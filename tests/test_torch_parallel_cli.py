@@ -21,6 +21,18 @@ from tests.test_torch_found_avmnist import fx  # noqa: F401 (fixture)
 from tests.torch_ranks import found_avmnist_cli, run_ranks
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: under a parallel test runner every split op
+    waits on threads the other workers' processes hold."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def test_dataparallel_cli_on_two_ranks_matches_one_and_jax(fx, tmp_path,
                                                            capsys):
     argv = fx["argv"] + ["--epochs", "2", "--use_dataparallel"]

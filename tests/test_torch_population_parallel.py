@@ -48,6 +48,18 @@ VARIANTS = {
 }
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: under a parallel test runner every split op
+    waits on threads the other workers' processes hold."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _data(n):
     # float32, as JAX places synthetic_avmnist's float64 images
     return {k: v.astype(np.float32) if v.dtype == np.float64 else v

@@ -60,6 +60,18 @@ SMALL = ["--channels", "4", "--batchsize", "8",
          "--seed", "0"]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: under a parallel test runner every split op
+    waits on threads the other workers' processes hold."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def root(tmp_path_factory):
     root = tmp_path_factory.mktemp("search_avmnist")

@@ -82,11 +82,11 @@ FIRST_STEP = [[0, 0, 0], [1, 2, 1], [2, 3, 0], [3, 1, 0], [3, 1, 1],
               [1, 0, 1]]
 
 
-@pytest.fixture
+@pytest.fixture(scope="module", autouse=True)
 def one_torch_thread():
-    """One intra-op thread: the sequential paths run thousands of tiny ops,
-    which several test workers' thread pools on the same cores slow down
-    by an order of magnitude."""
+    """One intra-op thread: the searches run thousands of tiny ops, which
+    several test workers' thread pools on the same cores slow down by an
+    order of magnitude."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     yield

@@ -42,6 +42,18 @@ SEARCH = ["--num_outputs", "3", "--batchsize", "4",
           "--ske_cp", "ske.checkpoint", "--rgb_cp", "rgb.checkpoint"]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: under a parallel test runner every split op
+    waits on threads the other workers' processes hold."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def write_store(root, splits=(("trainexp", 12), ("dev", 6))):
     for seed, (split, n) in enumerate(splits):
         tpack.make_synthetic_packed_ntu(str(root / "packed" / split), n=n,

@@ -55,6 +55,18 @@ CONFS = [np.array([[3, 1, 0]]),
          np.array([[2, 2, 1], [1, 0, 0], [3, 1, 2], [0, 3, 1]])]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: under a parallel test runner every split op
+    waits on threads the other workers' processes hold."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def small_args(extra=()):
     return tmain.parse_args([*SMALL, *extra])
 

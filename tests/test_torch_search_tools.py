@@ -30,6 +30,18 @@ from mfas_tpu_torch.search.surrogate import SurrogateDataloader
 TOL = 1e-5
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: under a parallel test runner every split op
+    waits on threads the other workers' processes hold."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _confs(rs, n, L):
     return [np.stack([rs.randint(0, 4, L), rs.randint(0, 4, L),
                       rs.randint(0, 2, L)], 1) for _ in range(n)]

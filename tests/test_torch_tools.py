@@ -53,6 +53,18 @@ from mfas_tpu_torch.tools import (convert_torchvision, parity_kit,
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: under a parallel test runner every split op
+    waits on threads the other workers' processes hold."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def jax_tool(name):
     """The JAX package's tools/<name>.py as a module."""
     spec = importlib.util.spec_from_file_location(
@@ -196,18 +208,13 @@ def port_search(tmp_path_factory):
     d = tmp_path_factory.mktemp("search")
     make_synthetic_avmnist(str(d / "data"), n_train=48, n_test=16)
     state, jsonl = str(d / "search.pkl"), str(d / "search.jsonl")
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        run, out = printed(smain.main, [
-            "--datadir", str(d / "data"), "--checkpointdir", str(d),
-            "--channels", "4", "--batchsize", "16", "--epochs", "1",
-            "--inner_representation_size", "8", "--max_fusions", "2",
-            "--search_iterations", "1", "--num_samples", "2",
-            "--epochs_surrogate", "2", "--random_backbones", "--seed", "0",
-            "--search_state", state, "--jsonl_log", jsonl], device="cpu")
-    finally:
-        torch.set_num_threads(n)
+    run, out = printed(smain.main, [
+        "--datadir", str(d / "data"), "--checkpointdir", str(d),
+        "--channels", "4", "--batchsize", "16", "--epochs", "1",
+        "--inner_representation_size", "8", "--max_fusions", "2",
+        "--search_iterations", "1", "--num_samples", "2",
+        "--epochs_surrogate", "2", "--random_backbones", "--seed", "0",
+        "--search_state", state, "--jsonl_log", jsonl], device="cpu")
     return state, jsonl, out
 
 
