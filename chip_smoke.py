@@ -101,7 +101,7 @@
    on the card (uint8 noise plus a colour per class): (c1) the found net at
    the CLI's defaults (fixed mode, --planes 36 doubling to 144, 8 cells,
    B=128, --drop_path 0.1 --drop_prob 0.2) trained one epoch through
-   ``mfas_tpu_torch.main_found_cifar`` on 22,500 / 2,500 / 10,000 images
+   ``mfas_tpu_torch.main_found_cifar`` on 11,250 / 1,250 / 5,000 images
    with --use_intermediate --save_checkpoint (finite losses, Model Acc
    above 0.2); (c2) its warm train steps timed and profiled, and the
    loader's batch apart; (c5) the search- and fixed-mode nets card against
@@ -123,8 +123,9 @@
    the host (--no-multitask: Model Acc of the fused head), its fused logits
    within 1e-4 of their max of the K1 run's, 0 K1 launches; (i3) found
    training on it, one epoch per phase, train clips/s beside (b)'s; (i4)
-   the NTU search at the CLI's defaults on (s1)'s store normalized on the
-   host: 197 candidates, 0 K1 launches, the top-5; (i5) the raw-AVI
+   the NTU search at the CLI's defaults cut to one search iteration on
+   (s1)'s store normalized on the host: 77 candidates, 0 K1 launches, the
+   top-5; (i5) the raw-AVI
    --datadir, which without cv2 must stop in load_video naming cv2 and
    pack_ntu; (i6) for each vertical, ``mfas_tpu_torch.tools.export_model
    --polymorphic_batch --check`` of its found checkpoint (NTU (i2)'s, AV-
@@ -197,7 +198,20 @@
    clips/s and peak memory; each card against the CPU in float64 at B=1, 2
    frames, 224 px: the forward within 1e-9 of max, one train step's
    gradients within 1e-6 of each tensor's max (CentralNet's central
-   column; its unused and analytically vanishing tensors named).
+   column; its unused and analytically vanishing tensors named);
+19. the port's benchmark (phase (bench), bench_phase): ``python3 -m
+   mfas_tpu_torch.bench`` in the lean profile, a process of its own with
+   MFAS_BENCH_BUDGET_S=360 (killed after 480 s) and its sidecar in the work
+   directory (so it carries nothing forward): the per-step proxy at full
+   width (B=16, 256 px, K=15; the found net's train step and inference in
+   f32 and bf16, its FLOPs and MFU), the tiny EPNAS search wall-clock
+   (streamed and --cache_features, K1), the found net fed from the packed
+   store (K1) and the resident store (K2, f32 and bf16) and the host
+   gather + normalize.
+   It must exit 0 with a record after each of its three sections, no
+   errors and no partial last record, the card's name as device_kind, a
+   finite positive headline and proxy, K1 and never K2 in the search,
+   streamed and step-only paths, K2 and never K1 in the resident ones.
 
 mfas_tpu_torch/scripts/archive_smoke.sh runs this script from a git archive
 of the tree and alone in an empty directory.
@@ -205,7 +219,8 @@ of the tree and alone in an empty directory.
 TF32 is off throughout. Any failed check exits non-zero. Before the last
 lines come {"slice": ...}, {"training": ...}, {"search": ...},
 {"avmnist": ...}, {"mmimdb": ...}, {"cifar": ...}, {"serving": ...},
-{"tools": ...}, {"multi_gpu": ...} and {"ntu_rest": ...} with the measured
+{"tools": ...}, {"multi_gpu": ...}, {"ntu_rest": ...} and {"bench": ...}
+(the bench's last record line, launches and figures) with the measured
 numbers; then {"kernels": [...]} with
 each kernel's launches on the main paths, time, plain version's time and
 bound; the last line is
@@ -213,6 +228,7 @@ bound; the last line is
 """
 
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -2183,9 +2199,10 @@ def mmimdb_phase(torch, tk, work):
 
 # CIFAR: cifar-10-batches-py stores drawn on the card, the CLIs' defaults
 # otherwise (--planes 36, --net_str 1 1 2 1 1 2 1 1, B=128)
-# (c1): 5,000 images per data_batch file (25,000: 22,500 train, 2,500
-# dev), test 10,000, so the script keeps near its time with phase (d)
-CIFAR_FOUND_STORE = (5000, 10000)       # images per data_batch file, test
+# (c1): 2,500 images per data_batch file (12,500: 11,250 train, 1,250
+# dev), test 5,000, so the script keeps within its time with phases (d) and
+# (bench)
+CIFAR_FOUND_STORE = (2500, 5000)        # images per data_batch file, test
 CIFAR_SEARCH_STORE = (512, 16)          # 2,560 train: 2,304 train, 256 dev
 CIFAR_FOUND_ARGV = ["--epochs", "1", "--use_intermediate"]
 CIFAR_SEARCH_ARGV = ["--epochs", "1", "--search_iterations", "1",
@@ -2231,7 +2248,7 @@ def cifar_found(torch, work, store):
     """(c1) ``mfas_tpu_torch.main_found_cifar`` at the CLI's defaults
     (fixed mode, --planes 36 doubling to 144, 8 cells, B=128, --drop_path
     0.1 --drop_prob 0.2) with --epochs 1 --use_intermediate
-    --save_checkpoint on 22,500 / 2,500 / 10,000 images: finite losses,
+    --save_checkpoint on 11,250 / 1,250 / 5,000 images: finite losses,
     Model Acc above 0.2 (chance is 0.1), the checkpoint loads into a fresh
     net with strict keys."""
     import numpy as np
@@ -2723,6 +2740,9 @@ def cifar_phase(torch, tk, work):
 # (i) NTU's default input paths and the export -> predict serving loop
 # --------------------------------------------------------------------------
 NATIVE_SKELETONS = (40, 300, 2)     # (i1): files, frames, persons
+# (i4): the default 3 search iterations cut to 1, so the whole script keeps
+# within its time with phase (bench) added
+I4_SEARCH_ITERATIONS = "1"
 NATIVE_GATHER = (20, 24)            # (i1): clips gathered, stored frames
 
 
@@ -2950,18 +2970,21 @@ def ntu_default_inputs(torch, tk, work, packed, runs, train):
 
 
 def ntu_search_host(torch, tk, work):
-    """(i4) the NTU search at the CLI's defaults on (s1)'s store normalized
-    on the host (no --device_input_normalize): 197 candidates, 0 K1
-    launches, the top-5, seconds and candidates/hour beside (s1)'s."""
-    phase("(i4) NTU search at the CLI's defaults, normalized on the host")
+    """(i4) the NTU search at the CLI's defaults cut to I4_SEARCH_ITERATIONS
+    on (s1)'s store normalized on the host (no --device_input_normalize):
+    32 + 3 x 15 = 77 candidates, 0 K1 launches, the top-5, seconds and
+    candidates/hour."""
+    phase("(i4) NTU search at the CLI's defaults, one iteration, normalized "
+          "on the host")
     store = os.path.join(work, "search")
     argv = ["--packed_datadir", store, "--checkpointdir", work,
-            *[a for a in SEARCH_ARGV if a != "--device_input_normalize"]]
+            *[a for a in SEARCH_ARGV if a != "--device_input_normalize"],
+            "--search_iterations", I4_SEARCH_ITERATIONS]
     seen, unwrap = _tally_out_dtypes(tk)
     try:
-        r, _, _ = _search_run(torch, tk, seen, "i4 default search, host "
-                              "normalize", argv, 0, "torch.float32",
-                              32 + 11 * 15)
+        r, _, _ = _search_run(torch, tk, seen, "i4 search, host normalize",
+                              argv, 0, "torch.float32",
+                              32 + (int(I4_SEARCH_ITERATIONS) * 4 - 1) * 15)
     finally:
         unwrap()
     return r
@@ -4460,6 +4483,91 @@ def ntu_rest_phase(torch, tk, work, packed, train):
     return out
 
 
+# (bench): the lean run takes ~175 s on the H100; its soft budget, and the
+# limit after which the process is killed and the phase fails
+BENCH_BUDGET_S = 360
+BENCH_TIMEOUT_S = 480
+BENCH_SECTIONS = ("bench_proxy", "bench_search_wallclock", "bench_e2e_input")
+# (bench)'s K1/K2 paths: {kernel_launches entry: (K1 wanted, K2 wanted)}
+BENCH_PATHS = {"bench_search_wallclock": (True, False),
+               "bench_e2e_input/streamed": (True, False),
+               "bench_e2e_input/resident": (False, True),
+               "bench_e2e_input/resident_bf16": (False, True),
+               "bench_e2e_input/step_only": (True, False)}
+
+
+def _finite_positive(x):
+    return isinstance(x, (int, float)) and math.isfinite(x) and x > 0
+
+
+def bench_phase(kind, work, root):
+    """Phase (bench): ``python3 -m mfas_tpu_torch.bench`` in the lean
+    profile at full width (B=16, 256 px, K=15), a process of its own with
+    its sidecar in ``work``; its record and its sections' kernel launches
+    are checked.
+    Returns the compact record, the sidecar's launches and figures."""
+    phase("(bench) mfas_tpu_torch.bench, lean profile, full width")
+    detail_file = os.path.join(work, "bench_detail.cuda.json")
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("MFAS_BENCH_")}
+    env["MFAS_BENCH_BUDGET_S"] = str(BENCH_BUDGET_S)
+    t0 = time.time()
+    proc = subprocess.run(
+        [sys.executable, "-m", "mfas_tpu_torch.bench", "--detail_file",
+         detail_file], cwd=root, env=env, capture_output=True, text=True,
+        timeout=BENCH_TIMEOUT_S)
+    seconds = time.time() - t0
+    records = []
+    for line in proc.stdout.splitlines():
+        if line.startswith('{"metric"'):
+            records.append(json.loads(line))
+            print(f"(bench) {line}", flush=True)
+    if proc.returncode != 0 or not records:
+        print(proc.stdout[-4000:] + proc.stderr[-4000:], flush=True)
+    check(proc.returncode == 0,
+          f"(bench) the bench exited {proc.returncode} after {seconds:.1f} s")
+    check(records, "(bench) the bench printed no record")
+    last = records[-1]
+    check("errors" not in last,
+          f"(bench) section errors {last.get('error_keys')}")
+    check("partial_after_section" not in last,
+          f"(bench) the last record is partial: {last}")
+    done = [r.get("partial_after_section") for r in records[:-1]]
+    check(done == list(BENCH_SECTIONS),
+          f"(bench) sections completed {done}, want {list(BENCH_SECTIONS)}")
+    with open(detail_file) as f:
+        detail = json.load(f)["detail"]
+    check(detail["device_kind"] == kind,
+          f"(bench) device_kind {detail['device_kind']!r}, want {kind!r}")
+    check((detail["batch"], detail["img"], detail["K"]) == (16, 256, 15),
+          f"(bench) the proxy ran at {detail['batch']}, {detail['img']} px, "
+          f"K={detail['K']}")
+    check(_finite_positive(last["value"])
+          and _finite_positive(detail["search_speedup_proxy"]),
+          f"(bench) headline {last['value']}, proxy "
+          f"{detail['search_speedup_proxy']}")
+    launches = detail["kernel_launches"]
+    for path, (want_k1, want_k2) in BENCH_PATHS.items():
+        got = launches[path]
+        check((got["u8_normalize"] > 0) == want_k1
+              and (got["u8_gather_normalize"] > 0) == want_k2,
+              f"(bench) {path} launched {got}: want K1 {want_k1}, "
+              f"K2 {want_k2}")
+    print(f"(bench) the bench in {seconds:.1f} s: headline {last['value']} x, "
+          f"proxy {detail['search_speedup_proxy']} x, launches "
+          + ", ".join(f"{s} {launches[s]}" for s in BENCH_SECTIONS),
+          flush=True)
+    return {"record": last, "seconds": seconds, "kernel_launches": launches,
+            "power_limit_w": detail["power_limit_w"],
+            "kernel_build_s": detail["kernel_build_s"],
+            "found_train_step_tflops": detail.get("found_train_step_tflops"),
+            "mfu_estimate": detail.get("mfu_estimate"),
+            "e2e_breakdown_per_batch_s":
+            detail.get("e2e_breakdown_per_batch_s"),
+            "search_wallclock_run_spreads_s":
+            detail.get("search_wallclock_run_spreads_s")}
+
+
 HBM_BYTES_PER_S = 3.35e12
 
 
@@ -4544,6 +4652,8 @@ def main():
         multi = multi_gpu_phase(torch, work, train)
         torch.cuda.empty_cache()
         rest = ntu_rest_phase(torch, tk, work, packed, train)
+        torch.cuda.empty_cache()
+        bench = bench_phase(kind, work, root)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -4566,6 +4676,7 @@ def main():
     print(json.dumps({"tools": tools, "nvidia_smi": smi}))
     print(json.dumps({"multi_gpu": multi, "nvidia_smi": smi}))
     print(json.dumps({"ntu_rest": rest, "nvidia_smi": smi}))
+    print(json.dumps({"bench": bench, "nvidia_smi": smi}))
     src = "mfas_tpu_torch/csrc/input_kernels.cu"
     # launches: K1's on its two main paths (streamed training, one per
     # train, dev and test batch; the default search, s1), K2's on the
@@ -4575,7 +4686,8 @@ def main():
     # in the sharded-bank search's extraction (d4, each rank and the
     # one-rank reference). Phase (n) adds K2 in
     # --conv_channels_last training (n2) and K1 in the baselines' eval
-    # forwards (n4).
+    # forwards (n4). Phase (bench), the bench in its own process, adds K1
+    # in its search and streamed-input sections and K2 in its resident one.
     # One PyTorch call computes K1's function: torch.addcmul(bias, x_u8,
     # scale), timed beside K1 as its yardstick (library_ms) and called
     # nowhere in the port. None computes K2's: a gather and then the
@@ -4596,13 +4708,15 @@ def main():
             "search_host_normalize_i4": serving["i4_search"]["k1_launches"]}
     predicts = {f"predict_{k[3:]}_i6": v["input_kernel_launches"]
                 for k, v in serving.items() if k.startswith("i6_")}
+    bench_paths = {k: bench["kernel_launches"][k] for k in BENCH_SECTIONS}
     k1_paths = {"found_training_packed_f32": train["b_packed_f32"]["launches"],
                 "search_default_s1": search["s1_default"]["k1_launches"],
                 **{k: v["u8_normalize"] for k, v in others.items()},
                 **host,
                 **{k: v["u8_normalize"] for k, v in predicts.items()},
                 **multi["launches_by_path"]["u8_normalize"],
-                "baselines_eval_n4": rest["n4_baselines"]["launches"]}
+                "baselines_eval_n4": rest["n4_baselines"]["launches"],
+                **{k: v["u8_normalize"] for k, v in bench_paths.items()}}
     k2_paths = {"found_training_resident_f32":
                 train["a_resident_f32"]["launches"],
                 **{k: v["u8_gather_normalize"] for k, v in others.items()},
@@ -4611,7 +4725,9 @@ def main():
                    for k, v in predicts.items()},
                 **multi["launches_by_path"]["u8_gather_normalize"],
                 "found_training_channels_last_n2":
-                rest["n2_channels_last"]["launches"]}
+                rest["n2_channels_last"]["launches"],
+                **{k: v["u8_gather_normalize"]
+                   for k, v in bench_paths.items()}}
     bound = input_kernel_bound_ms(4)
     f32 = ms["f32"]
     # the port's rule for a kernel: no slower than one PyTorch call for the

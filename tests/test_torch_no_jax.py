@@ -82,5 +82,6 @@ def test_port_imports_neither_jax_nor_mfas_tpu():
                  "mfas_tpu_torch.models.ntu",
                  "mfas_tpu_torch.runtime.profiler",
                  "mfas_tpu_torch.runtime.train_state",
-                 "mfas_tpu_torch.tools.bf16_sweep"):
+                 "mfas_tpu_torch.tools.bf16_sweep",
+                 "mfas_tpu_torch.bench"):
         assert name in res["modules"]
