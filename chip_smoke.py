@@ -57,11 +57,22 @@
    --weightsharing step over 8 of its 32 rows, (s4) a search state written
    and resumed; each with
    K1's exact launch count and output dtype, the candidates trained, finite
-   accuracies and the top-5, and its wall time split into feature
-   extraction, population steps, surrogate and sampler (search_phase); the
-   card's busy share over (s1)'s first two steps, from a trace
-   (search_busy_share); then warm population train/eval steps and
-   surrogate fit steps, timed and profiled apart (search_step_times);
+   accuracies and the top-5, its wall time split into feature extraction,
+   population steps, surrogate and sampler, and its CUDA graph captures
+   and replays (every run replays the surrogate's fit and predict graphs;
+   the bank runs (s2), (s4) replay the fused-epoch graphs once per epoch
+   and phase, the streamed (s1) never) (search_phase); the card's busy
+   share over (s1)'s first two steps, from a trace (search_busy_share);
+   then warm population train/eval steps and surrogate fit steps, timed
+   and profiled apart, each both graphed and eager: the per-step loop
+   against the graphed bank epoch, the eager fit epochs against the
+   graphed fit (search_step_times); (g) the graphs against eager calls of
+   the same step functions (graphs_phase): (g1) a graphed 50-epoch
+   surrogate fit on (s1)'s dataset and its predictions against the eager
+   ones from the same state, (g2) two graphed bank epochs (P=32, B=20, a
+   bf16 bank) against the eager program, both bitwise (else within 1e-6
+   of each tensor's max), and in float64 against the per-step loop of
+   torch's Adam within 1e-9;
 11. (s5) the search's device work, card against CPU: the extractor's taps
    on 2 clips in f32, eval mode and the streamed path's train mode, within
    1e-4 of each tensor's max, every backbone buffer unchanged; one
@@ -981,16 +992,19 @@ def _search_run(torch, tk, seen, name, argv, want_k1, want_dtype,
     import numpy as np
 
     from mfas_tpu_torch import main_searchable_ntu as smain
+    from mfas_tpu_torch.runtime import graphs
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     buf = io.StringIO()
     tk.reset_launch_counts()
+    graphs.reset_graph_counts()
     seen.clear()
     with contextlib.redirect_stdout(buf) if capture else \
             contextlib.nullcontext():
         run = smain.main(argv)
     counts = dict(tk.launch_counts)
+    graph_counts = {k: dict(v) for k, v in graphs.GRAPH_COUNTS.items()}
     peak = torch.cuda.max_memory_allocated()
     out = buf.getvalue()
     accs = [a for _, entries in run.data.state() for _, a in entries]
@@ -1009,7 +1023,7 @@ def _search_run(torch, tk, seen, name, argv, want_k1, want_dtype,
                                     for a in accs),
           f"{name}: top {run.top}, accuracies {accs}")
     r = {"seconds": run.seconds, "split_seconds": run.split,
-         "candidates": run.candidates,
+         "graphs": graph_counts, "candidates": run.candidates,
          "candidates_per_hour": run.candidates / run.seconds * 3600.0,
          "peak_bytes": peak, "k1_launches": counts["u8_normalize"],
          "k1_out": want_dtype, "confs_scored": len(accs),
@@ -1025,7 +1039,8 @@ def _search_run(torch, tk, seen, name, argv, want_k1, want_dtype,
           + f"; first step: {r['first_step_above_0']} of {len(first)} "
           f"accuracies above 0, {r['first_step_distinct']} distinct"
           + f"; peak {peak / 2**30:.2f} GiB allocated; K1 launches "
-          f"{counts['u8_normalize']} ({want_dtype} out); top-5 "
+          f"{counts['u8_normalize']} ({want_dtype} out); CUDA graph "
+          f"captures / replays {graph_counts}; top-5 "
           f"{[(c.tolist(), round(float(a), 4)) for c, a in run.top]}",
           flush=True)
     return r, out, run.data
@@ -1111,10 +1126,24 @@ def search_phase(torch, work, packed):
                            "epnas_steps": 2 * fusions}
     finally:
         unwrap()
+    # every EPNAS fit replays the surrogate's graphs; the bank's epochs
+    # replay the fused-epoch graphs once per epoch and phase (2 train and 3
+    # dev steps, one graph each), the streamed path never
+    for name, pops_run in (("s1_default", 0), ("s2_cache_features", pops),
+                           ("s4_first", fusions), ("s4_resume", fusions)):
+        g = out[name]["graphs"]
+        check(g.get("surrogate_fit", {}).get("replays", 0) > 0
+              and g.get("surrogate_predict", {}).get("replays", 0) > 0,
+              f"{name}: the surrogate's graphs did not run: {g}")
+        for prog in ("population_train_epoch", "population_eval_epoch"):
+            got = g.get(prog, {}).get("replays", 0)
+            check(got == pops_run * epochs,
+                  f"{name}: {got} {prog} replays, want {pops_run * epochs}")
     s1, s2 = out["s1_default"], out["s2_cache_features"]
     print(f"s2 vs s1: {s1['seconds'] / s2['seconds']:.2f}x faster")
     out["busy_share"] = search_busy_share(torch, work, base)
     out["steps"] = search_step_times(torch, work, s1_data)
+    out["g_graphs"] = graphs_phase(torch, s1_data)
     return out
 
 
@@ -1163,14 +1192,17 @@ def search_busy_share(torch, work, base):
 
 
 def search_step_times(torch, work, s1_data):
-    """The search's two device loops apart, at the default search's shapes:
-    a population train step and an eval step (B=20, hidden 16, drpt 0.5,
-    f32 features; P=32 as in the first EPNAS step, P=15 as in the others)
-    and a surrogate fit step on (s1)'s final dataset (one Adam step on one
-    sequence-length group, timed in fits of 10 epochs). Each: the median
-    wall time of SEARCH_STEPS' timed calls after its untimed ones, each
-    ended by a synchronize; then its profiled calls under torch.profiler
-    give the device's busy share and kernels per step."""
+    """The search's two device loops apart, at the default search's shapes,
+    each eager and graphed: a population train step and an eval step (B=20,
+    hidden 16, drpt 0.5; P=32 as in the first EPNAS step, P=15 as in the
+    others) of the per-step loop (f32 features, torch's Adam) and of the
+    graphed bank epoch (a bf16 bank of GRAPH_BANK rows, one epoch a call);
+    a surrogate fit step on (s1)'s final dataset (one Adam step on one
+    sequence-length group, in fits of 10 epochs), graphed and as eager
+    ``fit_epoch`` calls. Each: the median wall time of SEARCH_STEPS' timed
+    calls after its untimed ones, each ended by a synchronize; then its
+    profiled calls under torch.profiler give the device's busy share and
+    kernels per step."""
     import numpy as np
 
     from mfas_tpu_torch import main_searchable_ntu as smain
@@ -1178,6 +1210,7 @@ def search_step_times(torch, work, s1_data):
     from mfas_tpu_torch.fusion.layers import enumerate_layer_confs
     from mfas_tpu_torch.fusion.ntu import tap_sizes
     from mfas_tpu_torch.search import population as pop
+    from mfas_tpu_torch.search import surrogate as sur
     from mfas_tpu_torch.search.surrogate import SimpleRecurrentSurrogate
 
     phase("search: warm population steps and surrogate fit steps")
@@ -1233,15 +1266,272 @@ def search_step_times(torch, work, s1_data):
             f"population eval step P={P}",
             lambda: pop.eval_step(spec, params, bn, conf, batch))
 
+    # the bank's fused epoch, graphed, at the same shapes: one epoch of
+    # GRAPH_BANK[0] / B steps per call
+    bank, dev_bank = _graph_banks(torch, spec, dev, torch.bfloat16)
+    for P in (32, 15):
+        confs = [rows[rs.choice(32, 1 + p % 4)] for p in range(P)]
+        params, bn = pop.init_population(confs, spec, seed=SEED, device=dev)
+        conf = pop.conf_tensors(confs, spec, dev)
+        prog = pop._FusedEpochs(spec, params, bn, conf, bank, dev_bank, B, B,
+                                device=dev, graphed=True)
+        prog.load(params, bn, conf, bank, dev_bank)
+        take, wm = pop.PopulationTrainer._epoch_index_plan(
+            GRAPH_BANK[0], B, np.random.RandomState(SEED))
+        etas = np.full(take.shape[0], 1e-3, np.float32)
+        out[f"population_train_step_P{P}_graphed"] = measure(
+            f"population train step P={P}, graphed epoch",
+            lambda: prog.train_epoch(take, wm, etas, g), per=take.shape[0])
+        out[f"population_eval_step_P{P}_graphed"] = measure(
+            f"population eval step P={P}, graphed epoch", prog.eval_epoch,
+            per=-(-GRAPH_BANK[1] // B))
+
     surrogate = SimpleRecurrentSurrogate(100, 3, 100, device=dev)
     confs, accs = s1_data.get_data()
     group = max(range(len(confs)), key=lambda i: confs[i].shape[1])
     sizes = [c.shape[1] for c in confs]
-    out["surrogate_fit_step"] = measure(
-        f"surrogate fit step (length {confs[group].shape[0]}, "
-        f"{sizes[group]} confs; groups {sizes})",
+    what = (f"length {confs[group].shape[0]}, {sizes[group]} confs; groups "
+            f"{sizes}")
+    out["surrogate_fit_step_graphed"] = measure(
+        f"surrogate fit step, graphed ({what})",
         lambda: surrogate.fit([confs[group]], [accs[group]], num_epochs=10,
                               lr=args.lr_surrogate), per=10)
+    data = [torch.as_tensor(a, device=dev) for a in sur.pad_groups(
+        [confs[group]], [accs[group]], surrogate.max_seq_len)]
+    lr = torch.tensor(args.lr_surrogate, device=dev)
+
+    def eager_fit():
+        for _ in range(10):
+            sur.fit_epoch(surrogate.net, surrogate.adam, data, lr)
+        return float(surrogate.adam["step"])   # the fit's one host fetch
+
+    out["surrogate_fit_step_eager"] = measure(
+        f"surrogate fit step, eager ({what})", eager_fit, per=10)
+    return out
+
+
+GRAPH_BANK = (400, 60)      # (g2) and the graphed timings: bank rows
+GRAPH_FIT_EPOCHS = 50       # (g1): the default --epochs_surrogate
+
+
+def _graph_banks(torch, spec, dev, dtype, seed=SEED):
+    """Train and dev banks of GRAPH_BANK rows at the spec's tap widths:
+    random features in ``dtype`` (zero past each tap's width), random
+    logits and labels."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def bank(n):
+        def taps(sizes):
+            t = torch.randn((n, len(sizes), max(sizes)), device=dev,
+                            generator=g)
+            for i, c in enumerate(sizes):
+                t[:, i, c:] = 0.0
+            return t.to(dtype)
+        return {"fa": taps(spec.sizes_a), "fb": taps(spec.sizes_b),
+                "lb": torch.randn((n, spec.num_outputs), device=dev,
+                                  generator=g).to(dtype),
+                "la": torch.randn((n, spec.num_outputs), device=dev,
+                                  generator=g).to(dtype),
+                "label": torch.randint(0, spec.num_outputs, (n,), device=dev,
+                                       generator=g)}
+    return bank(GRAPH_BANK[0]), bank(GRAPH_BANK[1])
+
+
+def _max_rel(torch, got, want):
+    """max |got - want| over max |want| of one tensor (0 when equal)."""
+    got, want = got.detach().double(), want.detach().double()
+    return float((got - want).abs().max() / want.abs().max().clamp_min(
+        1e-300))
+
+
+def graphs_phase(torch, s1_data):
+    """(g) The search's CUDA graphs (mfas_tpu_torch/runtime/graphs.py)
+    against eager calls of the same step functions on the card.
+
+    (g1) the surrogate: from (s1)'s final dataset and a one-epoch Adam
+         state, a graphed GRAPH_FIT_EPOCHS-epoch fit against the eager
+         ``fit_epoch`` calls of the same padded groups from a copy of that
+         state: parameters, moments and step bitwise (else within 1e-6 of
+         each tensor's max), the last loss equal; then ``eval_models`` of
+         every conf of the dataset graphed against the eager padded
+         forward;
+    (g2) the bank's fused epoch at the default search's shapes (P=32,
+         B=20, hidden 16, --batchnorm, drpt 0.5, full-width taps, a bf16
+         bank of GRAPH_BANK rows): two graphed train and dev epochs
+         against the eager program on the same bank, plans, learning rates
+         and generator seed: parameters, BatchNorm state, correct counts
+         and the generator's state after, bitwise (else within 1e-6); then
+         in float64 with --alphas at a learning rate of 1e-6, the graphed
+         epoch against the per-step loop (``population.train_step``,
+         torch's Adam, batches gathered on the host's index rows): within
+         1e-9 (the two Adams differ in float32 against float64 bias
+         corrections only), the same correct counts and generator state.
+    Captures and replays of each program are printed."""
+    import dataclasses
+
+    import numpy as np
+
+    from mfas_tpu_torch import main_searchable_ntu as smain
+    from mfas_tpu_torch.core.optim import make_adam
+    from mfas_tpu_torch.fusion.layers import enumerate_layer_confs
+    from mfas_tpu_torch.fusion.ntu import tap_sizes
+    from mfas_tpu_torch.runtime import graphs
+    from mfas_tpu_torch.search import population as pop
+    from mfas_tpu_torch.search import surrogate as sur
+
+    phase("(g) the search's CUDA graphs against eager calls")
+    dev = torch.device("cuda")
+    args = smain.parse_args(SEARCH_ARGV)
+    graphs.reset_graph_counts()
+    out = {}
+
+    # (g1)
+    confs, accs = s1_data.get_data()
+    graphed = sur.SimpleRecurrentSurrogate(100, 3, 100, device=dev)
+    graphed.fit(confs, accs, num_epochs=1, lr=args.lr_surrogate)
+    eager = sur.SimpleRecurrentSurrogate(100, 3, 100, device=dev)
+    eager.load_numpy(graphed.params_numpy(), graphed.opt_state_numpy())
+    t0 = time.perf_counter()
+    loss = graphed.fit(confs, accs, num_epochs=GRAPH_FIT_EPOCHS,
+                       lr=args.lr_surrogate)
+    t_graphed = time.perf_counter() - t0
+    data = [torch.as_tensor(a, device=dev)
+            for a in sur.pad_groups(confs, accs, eager.max_seq_len)]
+    lr = torch.tensor(float(np.float32(args.lr_surrogate)), device=dev)
+    t0 = time.perf_counter()
+    for _ in range(GRAPH_FIT_EPOCHS):
+        want = sur.fit_epoch(eager.net, eager.adam, data, lr)
+    want = float(want)
+    t_eager = time.perf_counter() - t0
+    errs = {k: _max_rel(torch, v, eager.net.state_dict()[k])
+            for k, v in graphed.net.state_dict().items()}
+    for k in ("m", "v"):
+        for i, (a, b) in enumerate(zip(graphed.adam[k], eager.adam[k])):
+            errs[f"{k}{i}"] = _max_rel(torch, a, b)
+    steps = int(graphed.adam["step"]), int(eager.adam["step"])
+    flat = [c[:, i] for c in confs for i in range(c.shape[1])]
+    got = torch.tensor(graphed.eval_models(flat))
+    seq, lengths = sur.pad_confs(flat, eager.max_seq_len)
+    with torch.no_grad():
+        ref = eager.net(torch.as_tensor(seq, device=dev),
+                        torch.as_tensor(lengths, device=dev))
+    errs["eval_models"] = _max_rel(torch, got, ref[:len(flat), 0].cpu())
+    worst = max(errs.values())
+    G = len(confs)
+    out["g1_surrogate"] = {
+        "groups": [list(c.shape[:2]) for c in confs],
+        "padded": list(data[0].shape), "epochs": GRAPH_FIT_EPOCHS,
+        "bitwise": worst == 0.0 and loss == want, "max_rel_err": worst,
+        "loss_graphed": loss, "loss_eager": want, "steps": steps,
+        "fit_s_graphed": t_graphed, "fit_s_eager": t_eager,
+        "ms_per_step_graphed": t_graphed / (GRAPH_FIT_EPOCHS * G) * 1e3,
+        "ms_per_step_eager": t_eager / (GRAPH_FIT_EPOCHS * G) * 1e3,
+        "confs_predicted": len(flat)}
+    print(f"(g1) surrogate fit, {GRAPH_FIT_EPOCHS} epochs x {G} groups "
+          f"padded to {list(data[0].shape)}: graphed {t_graphed:.3f} s, "
+          f"eager {t_eager:.3f} s; loss {loss} / {want}, steps {steps}; "
+          f"parameters, moments and {len(flat)} predictions: max rel err "
+          f"{worst:.3e} ({'bitwise' if worst == 0.0 else 'not bitwise'})",
+          flush=True)
+    check(worst <= 1e-6 and abs(loss - want) <= 1e-6 * abs(want)
+          and steps[0] == steps[1],
+          f"(g1) graphed surrogate off its eager fit: {errs}, loss {loss} "
+          f"/ {want}, steps {steps}")
+
+    # (g2)
+    ske, ims = tap_sizes(args)
+    rows = np.asarray(enumerate_layer_confs(4, 4, 2))
+    rs = np.random.RandomState(SEED)
+    confs32 = [rows[rs.choice(32, 1 + p % 4)] for p in range(32)]
+    B = args.batchsize
+    n, n_dev = GRAPH_BANK
+
+    def epochs(prog, params, bn, conf, bank, dev_bank, scale):
+        prog.load(params, bn, conf, bank, dev_bank)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+        plan_rs = np.random.RandomState(SEED + 17)
+        corrs = []
+        for e in range(2):
+            take, wm = pop.PopulationTrainer._epoch_index_plan(n, B, plan_rs)
+            etas = np.full(take.shape[0], scale / (e + 1), np.float32)
+            corrs.append(prog.train_epoch(take, wm, etas, gen).clone())
+            corrs.append(prog.eval_epoch().clone())
+        return prog.state(), corrs, gen.get_state()
+
+    spec = pop.PopulationSpec(
+        sizes_a=tuple(ske), sizes_b=tuple(ims),
+        hidden=args.inner_representation_size, num_outputs=args.num_outputs,
+        max_rows=args.max_progression_levels, batchnorm=True,
+        drpt=args.drpt)
+    bank, dev_bank = _graph_banks(torch, spec, dev, torch.bfloat16)
+    params, bn = pop.init_population(confs32, spec, seed=SEED, device=dev)
+    conf = pop.conf_tensors(confs32, spec, dev)
+    runs = [epochs(pop._FusedEpochs(spec, params, bn, conf, bank, dev_bank,
+                                    B, B, device=dev, graphed=graphed),
+                   params, bn, conf, bank, dev_bank, 1e-3)
+            for graphed in (True, False)]
+    (pg, bg), cg, sg = runs[0]
+    (pe, be), ce, se = runs[1]
+    errs = {**{k: _max_rel(torch, pg[k], pe[k]) for k in pg},
+            **{f"bn_{k}": _max_rel(torch, bg[k], be[k]) for k in bg}}
+    same_counts = all(torch.equal(a, b) for a, b in zip(cg, ce))
+    worst = max(errs.values())
+    out["g2_bank_epoch"] = {
+        "P": 32, "batch": B, "bank_rows": list(GRAPH_BANK),
+        "train_steps_per_epoch": -(-n // B), "bitwise": worst == 0.0,
+        "max_rel_err": worst, "corrects_equal": same_counts,
+        "generator_equal": bool(torch.equal(sg, se)),
+        "train_corrects": [float(c.sum()) for c in cg[0::2]],
+        "dev_corrects": [float(c.sum()) for c in cg[1::2]]}
+    print(f"(g2) fused bank epoch P=32, B={B}, {n} / {n_dev} rows, 2 "
+          f"epochs: graphed against eager max rel err {worst:.3e}, correct "
+          f"counts equal {same_counts}, generator state equal "
+          f"{out['g2_bank_epoch']['generator_equal']}", flush=True)
+    check(worst <= 1e-6 and same_counts
+          and out["g2_bank_epoch"]["generator_equal"],
+          f"(g2) graphed fused epoch off its eager twin: {errs}")
+
+    spec64 = dataclasses.replace(spec, use_alphas=True)
+    bank, dev_bank = _graph_banks(torch, spec64, dev, torch.float64)
+    params, bn = pop.init_population(confs32, spec64, seed=SEED, device=dev)
+    params = {k: v.detach().double().requires_grad_()
+              for k, v in params.items()}
+    bn = {k: v.double() for k, v in bn.items()}
+    prog = pop._FusedEpochs(spec64, params, bn, conf, bank, dev_bank, B, B,
+                            device=dev, graphed=True)
+    prog.load(params, bn, conf, bank, dev_bank)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    take, wm = pop.PopulationTrainer._epoch_index_plan(
+        n, B, np.random.RandomState(SEED + 17))
+    etas = np.full(take.shape[0], 1e-6, np.float32)
+    corr = prog.train_epoch(take, wm, etas, gen).clone()
+    (pg, bg) = prog.state()
+    trainer = pop.PopulationTrainer(spec64, torch.nn.Sequential(),
+                                    device=dev)
+    opt = make_adam(params.values(), spec64.weight_decay)
+    g_loop = torch.Generator(device=dev).manual_seed(SEED + 1)
+    terms = []
+    for take_s, wm_s, eta in zip(take, wm, etas):
+        bn, _, c = pop.train_step(spec64, params, bn, opt, conf,
+                                  trainer._bank_batch(bank, take_s, wm_s),
+                                  float(eta), g_loop)
+        terms.append(c)
+    abs_err = max([float((pg[k] - v.detach()).abs().max())
+                   for k, v in params.items()]
+                  + [float((bg[k] - v).abs().max()) for k, v in bn.items()])
+    same_counts = torch.equal(corr, sum(terms))
+    same_gen = bool(torch.equal(gen.get_state(), g_loop.get_state()))
+    out["g2_against_per_step_loop_f64"] = {
+        "max_abs_err": abs_err, "corrects_equal": same_counts,
+        "generator_equal": same_gen}
+    print(f"(g2) f64 graphed epoch against the per-step loop: max abs err "
+          f"{abs_err:.3e}, correct counts equal {same_counts}, generator "
+          f"state equal {same_gen}", flush=True)
+    check(abs_err <= 1e-9 and same_counts and same_gen,
+          f"(g2) f64 graphed epoch off the per-step loop: {abs_err}")
+    out["graph_counts"] = {k: dict(v) for k, v in graphs.GRAPH_COUNTS.items()}
+    print(f"(g) CUDA graph captures / replays: {out['graph_counts']}",
+          flush=True)
     return out
 
 
@@ -1549,9 +1839,13 @@ def _cli_search(torch, smain, name, argv, want_candidates):
     returns the measured numbers, the run and its standard output."""
     import numpy as np
 
+    from mfas_tpu_torch.runtime import graphs
+
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    graphs.reset_graph_counts()
     run, out = _quiet(smain.main, argv)
+    graph_counts = {k: dict(v) for k, v in graphs.GRAPH_COUNTS.items()}
     peak = torch.cuda.max_memory_allocated()
     accs = [a for _, entries in run.data.state() for _, a in entries]
     first = [a for L, entries in run.data.state() if L == 1
@@ -1561,7 +1855,7 @@ def _cli_search(torch, smain, name, argv, want_candidates):
     check(all(np.isfinite(a) and 0 <= a <= 1 for a in accs),
           f"{name}: accuracies {accs}")
     r = {"seconds": run.seconds, "split_seconds": run.split,
-         "candidates": run.candidates,
+         "graphs": graph_counts, "candidates": run.candidates,
          "candidates_per_hour": run.candidates / run.seconds * 3600.0,
          "peak_bytes": peak, "confs_scored": len(accs),
          "best_acc": max(accs), "first_step_distinct": len(set(first)),
@@ -1573,7 +1867,8 @@ def _cli_search(torch, smain, name, argv, want_candidates):
           + f"; best acc {r['best_acc']:.4f}; one-row confs "
           f"{len(first)} ({r['first_step_distinct']} distinct accuracies"
           + (f", {min(first):.4f}-{max(first):.4f}" if first else "")
-          + f"); peak {peak / 2**30:.2f} GiB allocated; top-5 "
+          + f"); peak {peak / 2**30:.2f} GiB allocated; CUDA graph "
+          f"captures / replays {graph_counts}; top-5 "
           f"{[(c.tolist(), round(float(a), 4)) for c, a in run.top]}",
           flush=True)
     return r, run, out

@@ -78,8 +78,9 @@ def kaiming_uniform(a: float = 0.0):
     return f
 
 
-torch_default_weight = kaiming_uniform(a=math.sqrt(5.0))
-"""torch Linear/Conv default weight: kaiming_uniform(a=sqrt(5))."""
+def torch_default_weight(generator, shape, device):
+    """torch Linear/Conv default weight: kaiming_uniform(a=sqrt(5))."""
+    return kaiming_uniform(a=math.sqrt(5.0))(generator, shape, device)
 
 
 def torch_default_bias(weight_shape):

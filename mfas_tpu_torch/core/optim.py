@@ -13,6 +13,12 @@ shared step, nothing skipped). ``adam_step_skip_zero_grads`` also skips a
 parameter whose gradient is all zero (a path DropPath dropped): the JAX
 package's ``adam_init(per_leaf_step=True)`` +
 ``adam_update(skip_disconnected=True)`` mode of whole-net training.
+
+``adam_init``/``adam_update`` are the JAX package's functional Adam itself,
+for the search's captured programs (search/surrogate.py,
+search/population.py): explicit moments and one shared step tensor, the
+learning rate a device tensor, bias corrections in float32, every update in
+place, so a CUDA graph that captured a step replays it on the same tensors.
 """
 
 from __future__ import annotations
@@ -88,3 +94,38 @@ def set_lr(optimizer, eta):
     lr = float(np.float32(eta))
     for group in optimizer.param_groups:
         group["lr"] = lr
+
+
+def adam_init(params):
+    """The JAX package's ``adam_init`` state for a list of tensors: zero
+    moments ("m", "v", lists in the parameters' order) and one shared
+    "step", a 0-d float32 tensor on the parameters' device."""
+    return {"m": [torch.zeros_like(p) for p in params],
+            "v": [torch.zeros_like(p) for p in params],
+            "step": torch.zeros((), device=params[0].device)}
+
+
+def adam_update(params, grads, state, lr, weight_decay=0.0):
+    """One step of the JAX package's ``adam_update``, in place on
+    ``params`` and ``state`` (no host sync, nothing allocated that outlives
+    the call, so a CUDA graph can capture it): coupled L2 weight decay,
+    m = b1 m + (1-b1) g, v = b2 v + (1-b2) g^2, the step advanced, then
+    p -= lr * (m / bc1) / (sqrt(v / bc2) + eps) with bc = 1 - b^step in
+    float32. ``lr``: a 0-d tensor on the parameters' device (or a float)."""
+    b1, b2 = BETAS
+    m, v, step = state["m"], state["v"], state["step"]
+    with torch.no_grad():
+        if weight_decay:
+            grads = torch._foreach_add(grads, params, alpha=weight_decay)
+        torch._foreach_mul_(m, b1)
+        torch._foreach_add_(m, grads, alpha=1.0 - b1)
+        torch._foreach_mul_(v, b2)
+        torch._foreach_addcmul_(v, grads, grads, value=1.0 - b2)
+        step.add_(1.0)
+        denom = torch._foreach_div(v, 1.0 - b2 ** step)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, EPS)
+        upd = torch._foreach_div(m, 1.0 - b1 ** step)
+        torch._foreach_div_(upd, denom)
+        torch._foreach_mul_(upd, lr)
+        torch._foreach_sub_(params, upd)

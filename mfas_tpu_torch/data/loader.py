@@ -22,11 +22,20 @@ import torch
 class ResumableRng:
     """Shuffle/seed-stream RNG checkpointing shared by the loaders."""
 
+    def _seed_rng(self, seed):
+        self._rng = np.random.RandomState(seed)
+        self._start_state = self._rng.get_state()
+
     def rng_state(self):
         return self._rng.get_state()
 
     def set_rng_state(self, state):
         self._rng.set_state(state)
+
+    def rewind_rng(self):
+        """Back to the state the loader was built with: its next pass is
+        its first epoch (the shuffle and per-sample seeds of that epoch)."""
+        self._rng.set_state(self._start_state)
 
 
 class ArrayLoader(ResumableRng):
@@ -45,7 +54,7 @@ class ArrayLoader(ResumableRng):
                         else np.asarray(indices))
         self.batch_size = int(batch_size)
         self.shuffle = shuffle
-        self._rng = np.random.RandomState(seed)
+        self._seed_rng(seed)
 
     @property
     def dataset_size(self):
@@ -140,7 +149,7 @@ class MapLoader(ResumableRng):
         self.shuffle = shuffle
         self.num_workers = max(1, int(num_workers))
         self.prefetch = max(1, int(prefetch))
-        self._rng = np.random.RandomState(seed)
+        self._seed_rng(seed)
 
     @property
     def dataset_size(self):

@@ -136,7 +136,7 @@ class ResidentLoader(ResumableRng):
         self.batch_size = int(batch_size)
         self.transform = transform
         self.shuffle = shuffle
-        self._rng = np.random.RandomState(seed)
+        self._seed_rng(seed)
         self._needs_rng = any(getattr(t, "accepts_rng", False)
                               for t in _unwrap(transform))
 

@@ -4,8 +4,10 @@ mfas_tpu/models/enas_cell.py; reference models/auxiliary/aux_models.py:
 
   * CreateOp: the 10-way op factory (identity-ish 1x1, conv 1/3/5/7,
     separable 3/5/7, max/avg pool branches), by label or index;
-  * ConvBranch, SeparableConvOld, PoolBranch, FactorizedReduction (the
-    stride-2 form, the only one the network builds), AuxiliaryHead;
+  * ConvBranch, SeparableConvOld, SeparableConv, PoolBranch,
+    FactorizedReduction (the stride-2 form, the only one the network
+    builds), AuxiliaryHead, and the reference's zero paddings
+    Tensor1DLateralPadding and ChannelPadding;
   * CellBlock with DropPath: ONE uniform draw per DropPath per train-mode
     forward, from the engine's generator (a whole-batch decision, inverted
     scaling); the decision stays a tensor, so a dropped op's gradient is
@@ -44,6 +46,32 @@ class SeparableConvOld(nn.Module):
 
     def forward(self, x):
         return self.pointwise(self.depthwise(x))
+
+
+class SeparableConv(nn.Module):
+    """The double separable stack (aux_models.py:437-457): depthwise,
+    pointwise, BatchNorm (eps 1e-3), ReLU, twice. No op of the search space
+    builds it (CreateOp's separable ops are SeparableConvOld)."""
+
+    def __init__(self, in_planes, out_planes, kernel_size, bias=False, *,
+                 device, generator):
+        super().__init__()
+        kw = dict(device=device, generator=generator)
+        padding = (kernel_size - 1) // 2
+        self.op = nn.Sequential(
+            L.Conv2d(in_planes, in_planes, kernel_size, padding=padding,
+                     groups=in_planes, bias=bias, **kw),
+            L.Conv2d(in_planes, out_planes, 1, bias=bias, **kw),
+            L.BatchNorm2d(out_planes, eps=1e-3, device=device),
+            L.ReLU(),
+            L.Conv2d(out_planes, out_planes, kernel_size, padding=padding,
+                     groups=out_planes, bias=bias, **kw),
+            L.Conv2d(out_planes, out_planes, 1, bias=False, **kw),
+            L.BatchNorm2d(out_planes, eps=1e-3, device=device),
+            L.ReLU())
+
+    def forward(self, x):
+        return self.op(x)
 
 
 def _conv_bn_relu(in_planes, out_planes, kernel_size, padding, device,
@@ -277,3 +305,27 @@ class AuxiliaryHead(nn.Module):
     def forward(self, x):
         x = F.adaptive_avg_pool2d_1x1(self.features(x))
         return self.classifier(x.reshape(x.shape[0], -1))
+
+
+# small pieces the reference's aux_models also exports
+class Tensor1DLateralPadding(nn.Module):
+    """(B, C) -> (B, C + pad), zeros appended."""
+
+    def __init__(self, pad):
+        super().__init__()
+        self.pad = pad
+
+    def forward(self, x):
+        return torch.cat([x, x.new_zeros((x.shape[0], self.pad))], dim=1)
+
+
+class ChannelPadding(nn.Module):
+    """(B, C, ...) -> (B, C + pad, ...), zero channels appended."""
+
+    def __init__(self, pad):
+        super().__init__()
+        self.pad = pad
+
+    def forward(self, x):
+        return torch.cat([x, x.new_zeros((x.shape[0], self.pad)
+                                         + tuple(x.shape[2:]))], dim=1)

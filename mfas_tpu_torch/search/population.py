@@ -23,6 +23,21 @@ device bank (bf16 or int8) that later epochs and populations gather from.
 The dev split is extracted once in eval mode and kept: as a bank for the
 fused epoch loop, or as a per-batch cache.
 
+The fused epoch (the JAX package's ``_PopulationPrograms.train_epoch`` /
+``eval_epoch``): with a bank, ``fused_epochs`` and no data or pop group,
+each epoch runs over static copies of the population, its Adam state
+(``core/optim.py::adam_update``), both banks and the epoch's index plan and
+per-step learning rates, which the host scheduler fills as on the per-batch
+path. On a CUDA device its train steps and its dev steps are CUDA graphs
+(runtime/graphs.py), captured once per shape in a process-wide cache
+(``fused_epochs``) and replayed: one replay per epoch and phase when an
+epoch has at most MAX_GRAPH_STEPS steps. On the CPU the same step functions
+run eagerly. The per-step loop of ``train_step`` (torch's Adam) stays,
+chosen by configuration: under a data or pop group (NCCL capture at world >
+1 cannot be checked on one card, and gloo cannot be captured), with
+``fused_epochs=False`` (``--no_fused_epochs``), and on the bankless
+streamed path, whose backbone passes run per batch as in the JAX package.
+
 Several processes (parallel/mesh.py) lay out as a (pop, data) grid. The
 ``data`` group splits every batch by rows: each rank extracts features of
 its rows (train-mode BatchNorm statistics and dropout masks of the global
@@ -46,7 +61,7 @@ import contextlib
 import copy
 import itertools
 import math
-from dataclasses import dataclass
+from dataclasses import astuple, dataclass
 
 import numpy as np
 import torch
@@ -55,10 +70,12 @@ import torch.nn.functional as TF
 from mfas_tpu_torch.core import functional as F
 from mfas_tpu_torch.core.layers import (_BatchNorm, set_data_group,
                                         set_dropout_generator)
-from mfas_tpu_torch.core.optim import make_adam, set_lr
+from mfas_tpu_torch.core.optim import (adam_init, adam_update, make_adam,
+                                       set_lr)
 from mfas_tpu_torch.data.loader import prefetch_to_device, to_device
 from mfas_tpu_torch.fusion.layers import shared_weight_key
 from mfas_tpu_torch.parallel import mesh as pm
+from mfas_tpu_torch.runtime import graphs
 
 # process-wide token source for the loader-keyed feature caches (never
 # reused, unlike id() after garbage collection)
@@ -430,6 +447,204 @@ def eval_step(spec, params, bn_state, conf, batch):
 
 
 # --------------------------------------------------------------------------
+# the fused bank epoch: the JAX package's _PopulationPrograms.train_epoch /
+# eval_epoch
+# --------------------------------------------------------------------------
+MAX_GRAPH_STEPS = 64
+
+
+def _graph_steps(steps):
+    """The steps one graph holds: the largest divisor of ``steps`` up to
+    MAX_GRAPH_STEPS, so an epoch is whole replays (one when it is short)."""
+    return max(d for d in range(1, min(steps, MAX_GRAPH_STEPS) + 1)
+               if steps % d == 0)
+
+
+def plan_batch(bank, take, wmask, pos):
+    """Step ``pos`` ((1,) on the device) of an index plan (take, wmask),
+    gathered from ``bank``: (fa, fb, lb, la, label, wmask) float32."""
+    idx = take.index_select(0, pos)[0]
+    got = {k: v.index_select(0, idx) for k, v in bank.items()}
+    return (*(_bank_value(got, k) for k in ("fa", "fb", "lb", "la")),
+            got["label"], wmask.index_select(0, pos)[0])
+
+
+def _next(pos, steps):
+    with torch.no_grad():
+        torch.remainder(pos + 1, steps, out=pos)
+
+
+def fused_train_step(spec, st, generator):
+    """One train step of the fused epoch on the static state ``st``
+    (``_FusedEpochs``): the batch of plan step st["pos"], the summed loss's
+    gradients, the JAX package's Adam at etas[pos] in place, the BatchNorm
+    state, the correct counts added to st["corr"], pos advanced (wrapping
+    at the epoch's end). The same function runs eagerly and captured."""
+    pos = st["pos"]
+    batch = plan_batch(st["bank"], st["take"], st["wmask"], pos)
+    params = list(st["params"].values())
+    loss, corrects, new_bn = population_losses(
+        spec, st["params"], st["bn"], st["conf"], batch, True, generator)
+    grads = torch.autograd.grad(loss.sum(), params)
+    adam_update(params, grads, st["adam"], st["etas"].index_select(0, pos)[0],
+                spec.weight_decay)
+    with torch.no_grad():
+        if spec.batchnorm:
+            for k, v in new_bn.items():
+                st["bn"][k].copy_(v)
+        st["corr"].add_(corrects)
+    _next(pos, st["take"].shape[0])
+
+
+def fused_eval_step(spec, st):
+    """One dev step of the fused epoch: plan step st["dev_pos"] of the dev
+    bank, its correct counts added to st["dev_corr"], dev_pos advanced."""
+    pos = st["dev_pos"]
+    batch = plan_batch(st["dev_bank"], st["dev_take"], st["dev_wmask"], pos)
+    with torch.no_grad():
+        _, corrects, _ = population_losses(spec, st["params"], st["bn"],
+                                           st["conf"], batch, False)
+        st["dev_corr"].add_(corrects)
+    _next(pos, st["dev_take"].shape[0])
+
+
+def _bank_layout(bank):
+    return tuple((k, tuple(v.shape), v.dtype) for k, v in bank.items())
+
+
+class _FusedEpochs:
+    """The fused bank epoch of one shape (spec, P, banks, batch sizes): a
+    static state ``st`` (the population's parameters, BatchNorm state and
+    Adam state, its conf, copies of both banks, the train plan and its
+    per-step learning rates, the dev plan, the correct counts, the plan
+    positions) and a generator of its own. ``graphed``: a CUDA graph of
+    ``_graph_steps`` train steps and one of dev steps, captured when the
+    program is built and replayed for every epoch; otherwise each step runs
+    eagerly (the plain version: the CPU's, and the card's reference in
+    chip_smoke.py)."""
+
+    def __init__(self, spec, params, bn_state, conf, bank, dev_bank,
+                 batch_size, dev_batch_size, *, device, graphed):
+        self.graphed = graphed
+        n, n_dev = int(bank["label"].shape[0]), int(dev_bank["label"].shape[0])
+        steps = -(-n // batch_size)
+        dev_take, dev_wm = PopulationTrainer._epoch_index_plan(
+            n_dev, dev_batch_size)
+
+        def zeros(t):
+            return torch.zeros(t.shape, dtype=t.dtype, device=device)
+
+        st = {"params": {k: zeros(v).requires_grad_()
+                         for k, v in params.items()},
+              "bn": {k: zeros(v) for k, v in bn_state.items()},
+              "conf": {k: zeros(v) for k, v in conf.items()},
+              "bank": {k: zeros(v) for k, v in bank.items()},
+              "dev_bank": {k: zeros(v) for k, v in dev_bank.items()},
+              "take": torch.zeros((steps, batch_size), dtype=torch.long,
+                                  device=device),
+              "wmask": torch.zeros((steps, batch_size), device=device),
+              "etas": torch.zeros((steps,), device=device),
+              "dev_take": torch.as_tensor(dev_take, dtype=torch.long,
+                                          device=device),
+              "dev_wmask": torch.as_tensor(dev_wm, device=device),
+              "pos": torch.zeros((1,), dtype=torch.long, device=device),
+              "dev_pos": torch.zeros((1,), dtype=torch.long, device=device)}
+        st["adam"] = adam_init(list(st["params"].values()))
+        P = conf["sel_a"].shape[0]
+        st["corr"] = torch.zeros((P,), device=device)
+        st["dev_corr"] = torch.zeros((P,), device=device)
+        self.st, self.bank_key = st, None
+        self.generator = torch.Generator(device=device)
+        self.chunk = (_graph_steps(steps), _graph_steps(dev_take.shape[0]))
+
+        def train_chunk():
+            for _ in range(self.chunk[0]):
+                fused_train_step(spec, st, self.generator)
+
+        def eval_chunk():
+            for _ in range(self.chunk[1]):
+                fused_eval_step(spec, st)
+
+        if graphed:
+            self._train = graphs.capture("population_train_epoch",
+                                         train_chunk, [self.generator]).replay
+            self._eval = graphs.capture("population_eval_epoch",
+                                        eval_chunk).replay
+        else:
+            self._train, self._eval = train_chunk, eval_chunk
+
+    def load(self, params, bn_state, conf, bank, dev_bank, bank_key=None):
+        """A new population into the static state: its parameters,
+        BatchNorm state and conf copied in, Adam's moments and step zeroed;
+        the banks copied only when ``bank_key`` (None: always) differs from
+        the last one's."""
+        st = self.st
+        with torch.no_grad():
+            for name, src in (("params", params), ("bn", bn_state),
+                              ("conf", conf)):
+                for k, v in src.items():
+                    st[name][k].copy_(v)
+            if bank_key is None or bank_key != self.bank_key:
+                for name, src in (("bank", bank), ("dev_bank", dev_bank)):
+                    for k, v in src.items():
+                        st[name][k].copy_(v)
+            self.bank_key = bank_key
+            for t in (*st["adam"]["m"], *st["adam"]["v"], st["adam"]["step"],
+                      st["pos"], st["dev_pos"]):
+                t.zero_()
+
+    def train_epoch(self, take, wmask, etas, generator):
+        """One train epoch over the plan (take, wmask) at the per-step
+        learning rates ``etas``, dropout drawn from ``generator``'s stream
+        (its state moves on as an eager epoch would move it). Returns the
+        correct counts (P,), a static tensor the next epoch rewrites."""
+        st = self.st
+        st["take"].copy_(torch.as_tensor(take))
+        st["wmask"].copy_(torch.as_tensor(wmask))
+        st["etas"].copy_(torch.as_tensor(np.asarray(etas, np.float32)))
+        st["corr"].zero_()
+        self.generator.set_state(generator.get_state())
+        for _ in range(st["take"].shape[0] // self.chunk[0]):
+            self._train()
+        generator.set_state(self.generator.get_state())
+        return st["corr"]
+
+    def eval_epoch(self):
+        """One dev epoch; returns the correct counts (P,), static."""
+        self.st["dev_corr"].zero_()
+        for _ in range(self.st["dev_take"].shape[0] // self.chunk[1]):
+            self._eval()
+        return self.st["dev_corr"]
+
+    def state(self):
+        """Copies of the population's (params, bn_state)."""
+        return ({k: v.detach().clone() for k, v in self.st["params"].items()},
+                {k: v.clone() for k, v in self.st["bn"].items()})
+
+
+_FUSED_CACHE: dict = {}
+
+
+def fused_epochs(spec, params, bn_state, conf, bank, dev_bank, batch_size,
+                 dev_batch_size, *, device):
+    """The process-wide ``_FusedEpochs`` of these shapes (the counterpart
+    of ``population_programs(program_key=...)``), built on first use:
+    graphed on a CUDA device, eager on the CPU. It holds its own copy of
+    the banks for as long as the process runs."""
+    device = torch.device(device)
+    key = (astuple(spec), tuple((k, tuple(v.shape)) for k, v in
+                                params.items()),
+           _bank_layout(bank), _bank_layout(dev_bank), batch_size,
+           dev_batch_size, str(device))
+    prog = _FUSED_CACHE.get(key)
+    if prog is None:
+        prog = _FUSED_CACHE[key] = _FusedEpochs(
+            spec, params, bn_state, conf, bank, dev_bank, batch_size,
+            dev_batch_size, device=device, graphed=device.type == "cuda")
+    return prog
+
+
+# --------------------------------------------------------------------------
 # trainer
 # --------------------------------------------------------------------------
 class PopulationTrainer:
@@ -451,9 +666,10 @@ class PopulationTrainer:
     population gathers shuffled batches from. This freezes the augmentation
     draw and uses the backbones' running statistics: candidate scoring only.
 
-    fused_epochs: with the bank, run each epoch as one loop over an index
-    plan with the dev split as a bank too; otherwise per loader batch, with
-    the dev split in a per-batch cache.
+    fused_epochs: with the bank, run each epoch over an index plan with the
+    dev split as a bank too (graphed on a CUDA device without a group, see
+    the module docstring); otherwise per loader batch, with the dev split
+    in a per-batch cache.
 
     bank_batch: target batch for the eval-mode extraction passes (bank
     build and dev features): consecutive loader batches are concatenated
@@ -499,6 +715,7 @@ class PopulationTrainer:
         self._dev_cache = self._dev_cache_key = None
         self._train_bank = self._train_bank_key = None
         self._dev_bank = self._dev_bank_key = None
+        self._token = next(_cache_token_counter)
 
     def _section(self, name):
         return (self.timer.section(name) if self.timer is not None
@@ -669,14 +886,20 @@ class PopulationTrainer:
             self._dev_cache, self._dev_cache_key = collected, key
 
     def _build_bank(self, loader, input_keys, label_key):
-        """One eval-mode extraction pass -> dict of per-sample device
-        arrays (the padding rows of the final batch dropped, so bank N ==
-        dataset size), stored in the feature dtype or as int8. Each batch's
-        rows are all-gathered over the data group; under
-        ``shard_feature_bank`` a rank keeps feature rows [r*m, (r+1)*m), m =
-        ceil(N/D), zero-padded, and every label."""
+        """One eval-mode extraction pass over the loader's first epoch ->
+        dict of per-sample device arrays (the padding rows of the final
+        batch dropped, so bank N == dataset size), stored in the feature
+        dtype or as int8. Each batch's rows are all-gathered over the data
+        group; under ``shard_feature_bank`` a rank keeps feature rows
+        [r*m, (r+1)*m), m = ceil(N/D), zero-padded, and every label."""
         store_dt = (_DTYPES[self.spec.feature_dtype]
                     if self.spec.feature_dtype else torch.float32)
+        # a bank holds the loader's first epoch (its shuffle and per-sample
+        # augmentation draws). A resumed search has restored the loader past
+        # that epoch; without the rewind its bank would differ from the one
+        # the uninterrupted search trained on, as the JAX package's does
+        if hasattr(loader, "rewind_rng"):
+            loader.rewind_rng()
         keys = ["fa", "fb", "lb", "la"]
         if self.int8_bank:
             keys += [k + "_scale" for k in keys]
@@ -820,9 +1043,26 @@ class PopulationTrainer:
         if use_fused:
             dev_bank = self._cached_bank("dev", dataloaders["dev"],
                                          input_keys, label_key)
+            n_train = int(bank["label"].shape[0])
+        if use_fused and self.group is None and self.pop_group is None:
+            prog = fused_epochs(spec, params, bn_state, conf, bank, dev_bank,
+                                bs, dev_bs, device=self.device)
+            keys = (self._train_bank_key, self._dev_bank_key)
+            prog.load(params, bn_state, conf, bank, dev_bank,
+                      None if None in keys else (self._token, *keys))
+            for epoch in range(num_epochs):
+                take, wm = self._epoch_index_plan(n_train, bs, bank_rs)
+                # the scheduler steps exactly as on the per-batch path
+                etas = [scheduler.step() for _ in range(take.shape[0])]
+                with self._section("population steps"):
+                    tr = prog.train_epoch(take, wm, etas, self.generator)
+                    dev = prog.eval_epoch()
+                record("train", [tr], bs)
+                best = np.maximum(best, record("dev", [dev], dev_bs))
+            params, bn_state = prog.state()
+        elif use_fused:
             dev_plan = self._epoch_index_plan(
                 int(dev_bank["label"].shape[0]), dev_bs)
-            n_train = int(bank["label"].shape[0])
             for epoch in range(num_epochs):
                 take, wm = self._epoch_index_plan(n_train, bs, bank_rs)
                 # the scheduler steps exactly as on the per-batch path

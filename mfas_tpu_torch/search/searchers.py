@@ -162,8 +162,9 @@ class NTUSearcher(ModelSearcher):
             args, spec, extractor, backbone_states, ("rgb", "ske"),
             self.device, timer, batch_prep=batch_prep, input_prep=input_prep,
             group=group)
-        self.surrogate = SimpleRecurrentSurrogate(100, 3, 100,
-                                                  device=self.device)
+        self.surrogate = SimpleRecurrentSurrogate(
+            100, 3, 100, max_seq_len=args.max_progression_levels,
+            device=self.device)
 
     def search(self):
         methods = {"train_sampled_fun": self.train_fn,
@@ -210,8 +211,9 @@ class AVMNISTSearcher(ModelSearcher):
         self.train_fn = _candidate_trainer(
             args, spec, extractor, backbone_states, ("image", "audio"),
             self.device, timer, group=group)
-        self.surrogate = SimpleRecurrentSurrogate(100, 3, 100,
-                                                  device=self.device)
+        self.surrogate = SimpleRecurrentSurrogate(
+            100, 3, 100, max_seq_len=args.max_progression_levels,
+            device=self.device)
 
     def search(self):
         methods = {"train_sampled_fun": self.train_fn,
@@ -246,8 +248,9 @@ class CifarSearcher(ModelSearcher):
         }
         self.train_fn = CifarSearchTrainer(device=self.device, timer=timer,
                                            group=group)
-        self.surrogate = SimpleRecurrentSurrogate(100, 4, 100,
-                                                  device=self.device)
+        self.surrogate = SimpleRecurrentSurrogate(
+            100, 4, 100, max_seq_len=args.max_progression_levels,
+            device=self.device)
 
     def search(self):
         methods = {"train_sampled_fun": self.train_fn,

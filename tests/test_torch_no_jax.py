@@ -83,5 +83,7 @@ def test_port_imports_neither_jax_nor_mfas_tpu():
                  "mfas_tpu_torch.runtime.profiler",
                  "mfas_tpu_torch.runtime.train_state",
                  "mfas_tpu_torch.tools.bf16_sweep",
-                 "mfas_tpu_torch.bench"):
+                 "mfas_tpu_torch.bench",
+                 "mfas_tpu_torch.runtime.graphs",
+                 "mfas_tpu_torch.core.optim"):
         assert name in res["modules"]
