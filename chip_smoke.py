@@ -9,7 +9,12 @@
 3. K1 u8_normalize against its plain PyTorch version, bitwise, at
    (20,8,256,256,3) in f32 and bf16, and with the frame pick 24 -> 8;
 4. K2 u8_gather_normalize against its plain version, bitwise, from a
-   (50,24,256,256,3) store with B=20, T=8, in f32 and bf16;
+   (50,24,256,256,3) store with B=20, T=8, in f32 and bf16; then K2 and K1
+   launched from CUDA graph replays: the resident and the streamed batch
+   preps each captured once (runtime/graphs.py::Step, the store passed
+   through uncopied) and replayed on 3 new batches per dtype, every output
+   bitwise its plain version, one launch counted per replay
+   (replayed_preps);
 5. times K1, K2, torch gather + K1 and the plain versions (median of CUDA
    event timings, L2 flushed between launches; under two timers, with and
    without a 1 ms spin of the card before each timed call, time_ms), f32
@@ -37,14 +42,22 @@
    --hbm_resident --bf16; (d) --hbm_resident --remat; (e) a resume of (a)'s
    state to --epochs 2 under --profile_dir, which must skip phase 1. Each
    run must print finite losses and Model Acc and launch its kernel exactly
-   once per train, dev and test batch (bf16 output in (c)); train clips/s
-   and peak allocated memory are printed per phase;
+   once per train, dev and test batch (bf16 output in (c)), from the
+   engine's CUDA graphs: one train graph per phase and one eval graph per
+   phase's dev split (and the resident test split's), replayed once per
+   batch, none under --remat (eager by configuration); train clips/s and
+   peak allocated memory are printed per phase;
 8. steady-state train steps at full width, B=20, on the resident path:
-   f32, bf16 and remat, phase 1 and phase 2 (median of 5 after 2), then 3
+   f32, bf16 and remat, phase 1 and phase 2, eager and then graphed in one
+   call (median of 5 after 2, peak allocated and reserved memory, then 3
    steps each under torch.profiler: device time per step by kernel class
    (convolution forward/dgrad/wgrad, elementwise, reductions, Adam, the
-   input kernel, ...) and the device's busy share; the card's state after
-   each mode;
+   input kernel, ...), busy share, kernels per step; remat eager only);
+   each graphed step then held to the eager one from the same state over
+   two train steps and an eval step under cuDNN's deterministic algorithms
+   (parameters, buffers, Adam state, losses, corrects, logits, generator):
+   bitwise, or within twice the spread of two eager runs
+   (graphed_vs_eager); the card's state after each mode;
 9. one phase-2 train step at full width on 2 clips with --drpt 0, card
    against CPU: in f64 with --batchnorm, the loss within 1e-4 relative and
    every gradient and BatchNorm statistic within 1e-3 of its tensor's max;
@@ -61,18 +74,22 @@
    population steps, surrogate and sampler, and its CUDA graph captures
    and replays (every run replays the surrogate's fit and predict graphs;
    the bank runs (s2), (s4) replay the fused-epoch graphs once per epoch
-   and phase, the streamed (s1) never) (search_phase); the card's busy
-   share over (s1)'s first two steps, from a trace (search_busy_share);
-   then warm population train/eval steps and surrogate fit steps, timed
-   and profiled apart, each both graphed and eager: the per-step loop
-   against the graphed bank epoch, the eager fit epochs against the
-   graphed fit (search_step_times); (g) the graphs against eager calls of
-   the same step functions (graphs_phase): (g1) a graphed 50-epoch
-   surrogate fit on (s1)'s dataset and its predictions against the eager
-   ones from the same state, (g2) two graphed bank epochs (P=32, B=20, a
-   bf16 bank) against the eager program, both bitwise (else within 1e-6
-   of each tensor's max), and in float64 against the per-step loop of
-   torch's Adam within 1e-9;
+   and phase; the streamed (s1) replays its features and train step once
+   per train batch and its eval step once per dev batch; (s3)'s candidates
+   replay the engine's) (search_phase); the card's busy share over (s1)'s
+   first two steps, from a trace (search_busy_share); then warm population
+   train/eval steps and surrogate fit steps, timed and profiled apart,
+   each both graphed and eager: the streamed per-batch steps eager and
+   graphed (P=32, P=15) and held to each other (streamed_vs_eager), the
+   graphed bank epoch, the eager fit epochs against the graphed fit, the
+   streamed train-mode features at full width eager and graphed, held
+   alike, one K1 launch per replay (search_step_times); (g) the graphs
+   against eager calls of the same step functions (graphs_phase): (g1) a
+   graphed 50-epoch surrogate fit on (s1)'s dataset and its predictions
+   against the eager ones from the same state, (g2) two graphed bank
+   epochs (P=32, B=20, a bf16 bank) against the eager program, both
+   bitwise (else within 1e-6 of each tensor's max), and in float64 against
+   the per-step loop (the same functional Adam) within 1e-9;
 11. (s5) the search's device work, card against CPU: the extractor's taps
    on 2 clips in f32, eval mode and the streamed path's train mode, within
    1e-4 of each tensor's max, every backbone buffer unchanged; one
@@ -83,8 +100,10 @@
    stores written on the card (avmnist_phase): (v1) found conf 0 trained
    for one epoch per phase through ``mfas_tpu_torch.main_found_avmnist`` on
    55,000 train + 10,000 test samples with --save_checkpoint, whose
-   --test_cp must print the same Model Acc, then warm phase-2 steps timed
-   and profiled; on 7,200 train samples through
+   --test_cp must print the same Model Acc (its engine's graphs: a train
+   and an eval graph per phase), then warm phase-2 steps eager and graphed,
+   timed and profiled, and held to each other (graphed_vs_eager); on 7,200
+   train samples through
    ``mfas_tpu_torch.main_searchable_avmnist``: (v2) the EPNAS search at
    its defaults cut to one search iteration (75 candidates; the first
    step's accuracies not all equal, the best above 0.2), (v3)
@@ -114,14 +133,18 @@
    B=128, --drop_path 0.1 --drop_prob 0.2) trained one epoch through
    ``mfas_tpu_torch.main_found_cifar`` on 11,250 / 1,250 / 5,000 images
    with --use_intermediate --save_checkpoint (finite losses, Model Acc
-   above 0.2); (c2) its warm train steps timed and profiled, and the
-   loader's batch apart; (c5) the search- and fixed-mode nets card against
+   above 0.2; one train graph replayed per batch); (c2) its warm train
+   steps eager and graphed, timed and profiled, the graphed step held to
+   the eager one (DropPath and the zero-gradient skip inside the graph),
+   and the loader's batch apart; (c5) the search- and fixed-mode nets card against
    CPU in f32 (1e-4 of max), a fixed-mode step in f64 (1e-3 of max, the
    parameters without a gradient as built), DropPath's kept share; (c3) a
    cut EPNAS search through ``mfas_tpu_torch.main_searchable_cifar`` (12
    of the 80 one-block rows + 4 whole-net candidates on 2,304 / 256
-   images), its state resumed after
-   the first step to the uninterrupted run's confs and accuracies; (c4) a
+   images; each candidate captures its own train graph and replays it
+   per batch), its state resumed after the first step to the
+   uninterrupted run's confs and accuracies, and what a candidate's
+   captures cost against the steps they save (cifar_capture_cost); (c4) a
    --weightsharing step whose store holds the last candidate's keys only.
    Neither input kernel may launch on this path;
 15. NTU's default input paths and the serving loop (phase (i), on the
@@ -238,6 +261,7 @@ bound; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero.
 """
 
+import gc
 import json
 import math
 import os
@@ -256,6 +280,15 @@ SEED = 0
 
 class SmokeFailure(Exception):
     pass
+
+
+def free_card(torch):
+    """Collect garbage, then hand the card's cached blocks back: a
+    reference cycle (torch keeps the frames of its optimizers' first calls
+    in a process until a collection) can hold an engine, and so its CUDA
+    graphs' memory pool, after its run."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def check(ok, msg):
@@ -380,6 +413,8 @@ def kernel_phases(torch, tk):
                     f"K2 store {tuple(K2_STORE)} B={B} T={T} {dt}")
         err["u8_gather_normalize"] = max(err["u8_gather_normalize"], e)
 
+    err["replayed"] = replayed_preps(torch, tk, store, g)
+
     phase("K1's yardstick torch.addcmul vs plain")
     scale, bias = tk._device_affine(MEAN, STD, x.device)
     lib = {dt: torch.empty(x.shape, dtype=dt, device=dev)
@@ -424,6 +459,67 @@ def kernel_phases(torch, tk):
     print("kernel_times_ms " + json.dumps(ms))
     card_state("after kernel times")
     return err, ms
+
+
+REPLAYED_BATCHES = 3
+
+
+def replayed_preps(torch, tk, store, g):
+    """K2 and K1 launched from CUDA graph replays: the resident batch prep
+    (data/resident.py::make_resident_prep, K2, the store passed through
+    uncopied) and the streamed inputs prep (data/ntu_pack.py::
+    make_device_normalize_inputs_prep, K1), each captured once
+    (runtime/graphs.py::Step) and replayed on REPLAYED_BATCHES new batches
+    at (20,8,256,256,3) in f32 and bf16: every output bitwise its plain
+    version, one launch counted per replay. Returns the max abs error."""
+    from mfas_tpu_torch.data.ntu_pack import make_device_normalize_inputs_prep
+    from mfas_tpu_torch.data.resident import make_resident_prep
+    from mfas_tpu_torch.engine.classifier import RESIDENT_KEYS
+    from mfas_tpu_torch.runtime import graphs
+
+    phase("K1 and K2 inside captured preps, replayed on new batches")
+    dev = store.device
+    B, T = K1_SHAPE[:2]
+    graphs.reset_graph_counts()
+    err = 0.0
+    for dt in (torch.float32, torch.bfloat16):
+        resident = make_resident_prep(fuse_gather=True, compute_dtype=dt)
+        streamed = make_device_normalize_inputs_prep(dt)
+        k2 = graphs.Step("resident_prep",
+                         lambda b: (resident(b)["rgb"],),
+                         resident=RESIDENT_KEYS)
+        k1 = graphs.Step("streamed_prep", lambda b: streamed((b["rgb"],)))
+        tk.reset_launch_counts()
+        for i in range(REPLAYED_BATCHES):
+            sidx = torch.randint(0, K2_STORE[0], (B,), device=dev,
+                                 generator=g)
+            fidx = torch.randint(0, K2_STORE[1], (B, T), device=dev,
+                                 generator=g)
+            (got,) = k2({"_idx": sidx, "rgb_t": fidx, "_rgb_store": store})
+            err = max(err, bitwise(
+                torch, got, tk.u8_gather_normalize_plain(
+                    store, sidx, fidx, MEAN, STD, dt),
+                f"K2 replay {i} {dt}"))
+            x = torch.randint(0, 256, K1_SHAPE, dtype=torch.uint8,
+                              device=dev, generator=g)
+            (got,) = k1({"rgb": x})
+            err = max(err, bitwise(
+                torch, got, tk.u8_normalize_plain(x, MEAN, STD,
+                                                  out_dtype=dt),
+                f"K1 replay {i} {dt}"))
+        want = {"u8_normalize": REPLAYED_BATCHES,
+                "u8_gather_normalize": REPLAYED_BATCHES}
+        check(tk.launch_counts == want,
+              f"replayed preps {dt}: launches {tk.launch_counts}, want "
+              f"{want}")
+    want = {"captures": 2, "replays": 2 * REPLAYED_BATCHES}
+    counts = {k: dict(v) for k, v in graphs.GRAPH_COUNTS.items()}
+    check(counts == {"resident_prep": want, "streamed_prep": want},
+          f"replayed preps: graph counts {counts}")
+    print(f"K1 and K2 replayed from captured preps on {REPLAYED_BATCHES} new "
+          f"batches per dtype: bitwise their plain versions, one launch per "
+          f"replay; graph counts {counts}", flush=True)
+    return err
 
 
 def library_err(torch, got, want):
@@ -517,7 +613,7 @@ def slice_phase(torch, work, packed):
                                     "u8_normalize"),
                                    ("resident", "--hbm_resident",
                                     "u8_gather_normalize")):
-            torch.cuda.empty_cache()
+            free_card(torch)
             torch.cuda.reset_peak_memory_stats()
             tk.reset_launch_counts()
             run = tmain.main(argv + [flag])
@@ -589,9 +685,14 @@ BATCHES = {"train": 2, "dev": 1, "test": 3}     # of 20, from SPLITS
 
 def _tally_out_dtypes(tk):
     """Wrap the two kernel wrappers so each call's output dtype is tallied
-    (the batch prep binds them when a run builds its engine). Returns the
-    tally and a function that puts the wrappers back."""
+    (the batch prep binds them when a run builds its engine). The tally is
+    a replay counter (runtime/graphs.py::count_replays): a graph that
+    captured a call adds it at every replay. Returns the tally and a
+    function that puts the wrappers back."""
+    from mfas_tpu_torch.runtime import graphs
+
     seen = {}
+    graphs.count_replays(seen)
     orig = {n: getattr(tk, n) for n in ("u8_normalize",
                                          "u8_gather_normalize")}
 
@@ -605,7 +706,13 @@ def _tally_out_dtypes(tk):
 
     for n, fn in orig.items():
         setattr(tk, n, wrap(n, fn))
-    return seen, lambda: [setattr(tk, n, fn) for n, fn in orig.items()]
+
+    def unwrap():
+        graphs.uncount_replays(seen)
+        for n, fn in orig.items():
+            setattr(tk, n, fn)
+
+    return seen, unwrap
 
 
 def traced(torch, work, name, fn, calls, steps=None):
@@ -638,11 +745,156 @@ def traced(torch, work, name, fn, calls, steps=None):
     raise SmokeFailure(f"{name}: torch.profiler caught no kernel twice")
 
 
+def _profiled_line(p):
+    return (f"device busy {p['device_busy_ms']:.2f} ms "
+            f"({100 * p['busy_share']:.0f} % of the kernel span), "
+            f"{p['kernels_per_step']:.0f} kernels")
+
+
+def paired_train_steps(torch, work, name, engine, model, prefixes, batch,
+                       eta, steps, graphed=True):
+    """``engine``'s train step on ``batch`` timed eager, then graphed, in
+    one call: for each, the median wall time of steps[1] timed steps after
+    steps[0] untimed ones (each ended by a synchronize; the graphed ones
+    replay the graph the first captured), peak allocated memory over the
+    timed steps and over all of them (capture included), then steps[2]
+    steps under torch.profiler (busy share, kernels per step, device time
+    by kernel class). Each mode gets a fresh Adam; its graphs are freed
+    after it. ``graphed=False``: eager only (a step that stays eager by
+    configuration). Returns {"eager": r, "graphed": r}."""
+    import numpy as np
+
+    from mfas_tpu_torch.engine.classifier import set_trainable
+
+    n_warm, n_timed, n_prof = steps
+    out = {}
+    for mode in ("eager", "graphed") if graphed else ("eager",):
+        engine.graphed = mode == "graphed"
+        set_trainable(model, prefixes)
+        model.train()
+        opt = engine.make_optimizer()
+        free_card(torch)
+        torch.cuda.reset_peak_memory_stats()
+        times, peak_warm = [], 0
+        for i in range(n_warm + n_timed):
+            if i == n_warm:
+                peak_warm = torch.cuda.max_memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            loss, _ = engine.train_step(batch, opt, eta)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            check(np.isfinite(float(loss)), f"{name} {mode}: loss {loss}")
+        ms = float(np.median(times[n_warm:])) * 1e3
+        peak = torch.cuda.max_memory_allocated()
+        # a graph's pool stays reserved between replays, and its blocks
+        # count as allocated only while the capture runs: the reserved
+        # peak is what the step holds on the card
+        r = {"step_ms": ms, "peak_bytes": peak,
+             "peak_bytes_all": max(peak, peak_warm),
+             "reserved_bytes": torch.cuda.max_memory_reserved(),
+             "step_ms_all": [t * 1e3 for t in times]}
+        r["profile"] = p = traced(
+            torch, work, f"{name}_{mode}",
+            lambda: engine.train_step(batch, opt, eta), n_prof)
+        print(f"{name} {mode}: {ms:.2f} ms/step, peak {peak / 2**30:.2f} "
+              f"GiB allocated ({r['peak_bytes_all'] / 2**30:.2f} with the "
+              f"warm-up), {r['reserved_bytes'] / 2**30:.2f} GiB reserved; "
+              f"traced {p['wall_ms_traced']:.2f} ms/step, "
+              + _profiled_line(p) + "; " + ", ".join(
+                  f"{c} {t:.2f}" for c, t in p["by_class_ms"].items()),
+              flush=True)
+        out[mode] = r
+        engine.release_graphs()
+        del opt
+    engine.graphed = graphed
+    free_card(torch)
+    return out
+
+
+def _rel(torch, a, b):
+    a, b = a.detach().double(), b.detach().double()
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+
+def held_to_eager(torch, name, runs):
+    """``runs``: the graphed run's tensors and two eager runs' from the same
+    state (dicts of name -> tensor). Every graphed tensor is held to the
+    first eager run's: bitwise when the two eager runs agree bitwise, else
+    within twice their largest relative spread (cuDNN picks backward kernels
+    that add in a varying order). Returns the figures."""
+    g, e1, e2 = runs
+    check(g.keys() == e1.keys() == e2.keys(),
+          f"{name}: the graphed and eager runs hold other tensors")
+    spread = max(_rel(torch, e2[k], e1[k]) for k in e1)
+    dev = {k: _rel(torch, g[k], e1[k]) for k in e1}
+    worst = max(dev, key=dev.get)
+    r = {"max_rel_dev": dev[worst], "worst": worst, "eager_spread": spread,
+         "bitwise": dev[worst] == 0.0, "tensors": len(dev)}
+    check(dev[worst] <= 2 * spread,
+          f"{name}: graphed {worst} {dev[worst]:.3e} of its max from eager, "
+          f"beyond twice the eager runs' spread {spread:.3e}")
+    print(f"{name}: graphed vs eager over {len(dev)} tensors: "
+          + ("bitwise" if r["bitwise"] else
+             f"max {dev[worst]:.3e} of max ({worst}), within twice the "
+             f"eager spread {spread:.3e}"), flush=True)
+    return r
+
+
+def graphed_vs_eager(torch, name, engine, model, prefixes, batches, eta):
+    """Train steps on ``batches`` and an eval step from one state, graphed
+    once and eager twice (``held_to_eager``): every parameter, buffer,
+    Adam moment and step count, loss, corrects, eval logit and the dropout
+    generator's state. cuDNN runs its deterministic algorithms here: its
+    default backward kernels add in a varying order, which Adam's first
+    steps turn into differences of up to ~30 % of a moment between two
+    eager runs of the full-width f32 step, too noisy a yardstick. The
+    model and generator end as they started."""
+    from mfas_tpu_torch.engine.classifier import set_trainable, snapshot
+
+    start, gen = snapshot(model), engine.generator.get_state()
+    names = {p: n for n, p in model.named_parameters()}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    runs = []
+    try:
+        for mode in ("graphed", "eager", "eager"):
+            model.load_state_dict(start)
+            engine.generator.set_state(gen)
+            engine.graphed = mode == "graphed"
+            set_trainable(model, prefixes)
+            model.train()
+            opt = engine.make_optimizer()
+            got = {}
+            for i, b in enumerate(batches):
+                got[f"loss{i}"], got[f"corrects{i}"] = engine.train_step(
+                    b, opt, eta)
+            model.eval()
+            got["eval_logits"] = engine.eval_step(batches[0])[2]
+            got.update({f"state/{k}": v.detach().clone()
+                        for k, v in model.state_dict().items()})
+            for p, st in opt.state.items():
+                got.update({f"adam/{names[p]}/{k}": v.clone()
+                            for k, v in st.items() if torch.is_tensor(v)})
+            got["generator"] = engine.generator.get_state()
+            engine.release_graphs()
+            del opt
+            runs.append(got)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    model.load_state_dict(start)
+    engine.generator.set_state(gen)
+    engine.graphed = True
+    free_card(torch)
+    return held_to_eager(torch, name, runs)
+
+
 def training_phase(torch, work, packed):
     import numpy as np
 
     from mfas_tpu_torch import main_found_ntu as tmain
     from mfas_tpu_torch.ops import input_kernels as tk
+    from mfas_tpu_torch.runtime import graphs
     from mfas_tpu_torch.runtime.checkpoint import load_state_dict
     from mfas_tpu_torch.runtime.profiler import profile_summary
 
@@ -667,14 +919,16 @@ def training_phase(torch, work, packed):
             kernel = ("u8_gather_normalize" if flag == "--hbm_resident"
                       else "u8_normalize")
             dt = "torch.bfloat16" if "--bf16" in extra else "torch.float32"
-            torch.cuda.empty_cache()
+            free_card(torch)
             tk.reset_launch_counts()
+            graphs.reset_graph_counts()
             seen.clear()
             t0 = time.time()
             run = tmain.main(base + [flag] + extra)
             wall = time.time() - t0
             counts = dict(tk.launch_counts)
             resumed = name == "e_resume"
+            gc = {k: dict(v) for k, v in graphs.GRAPH_COUNTS.items()}
             check(len(run.train) == (1 if resumed else 2),
                   f"{name}: {len(run.train)} training phases ran")
             if resumed:
@@ -684,6 +938,23 @@ def training_phase(torch, work, packed):
                            for e in r.epochs)
             want = (n_epochs * (BATCHES["train"] + BATCHES["dev"])
                     + BATCHES["test"])
+            # one train graph per phase (the trainable set differs), one
+            # eval graph per phase's dev split, each replayed once per
+            # batch; the test split replays the last dev graph, except on
+            # the resident path, whose test store (another address) is
+            # another graph; --remat stays eager, by configuration
+            n_phases = len(run.train)
+            want_graphs = {} if "--remat" in extra else {
+                "ClassifierEngine_train": {
+                    "captures": n_phases,
+                    "replays": n_epochs * BATCHES["train"]},
+                "ClassifierEngine_eval": {
+                    "captures": n_phases + (flag == "--hbm_resident"),
+                    "replays": n_epochs * BATCHES["dev"]
+                    + BATCHES["test"]}}
+            check(gc == want_graphs,
+                  f"{name}: graph counts {gc}, want {want_graphs}")
+            print(f"{name}: graph captures and replays {json.dumps(gc)}")
             check(counts[kernel] == want and sum(counts.values()) == want,
                   f"{name}: launches {counts}, want {want} of {kernel}")
             check(seen == {(kernel, dt): want},
@@ -711,7 +982,8 @@ def training_phase(torch, work, packed):
                   f"{wall:.1f} s, losses "
                   f"{[round(e['loss'], 4) for e in stats]}")
             out[name] = {"model_acc": run.acc, "phases": phases,
-                         "launches": counts[kernel], "run_seconds": wall}
+                         "launches": counts[kernel], "run_seconds": wall,
+                         "graph_counts": gc}
             if name == "a_resident_f32":
                 sd = load_state_dict(run.saved)
                 keys = {k[len("model/"):] for k in torch.load(
@@ -737,27 +1009,25 @@ def training_phase(torch, work, packed):
 # warm steps: (untimed, timed, profiled) calls
 WARM_STEPS = (2, 5, 3)
 SEARCH_STEPS = (3, 20, 5)
+FEATURE_STEPS = (2, 5, 2)   # the streamed features: 170 ms a call
 
 
 def warm_train_steps(torch, work, packed):
     """Steady-state train step times at full width, B=20, on the resident
     path (K2 inside the step): for f32, bf16 and remat, phase 1 (central
-    weights) and phase 2 (whole net), the median of the WARM_STEPS timed
-    steps after the untimed ones, each step ended by a synchronize; peak
-    allocated memory over the timed steps. Then the profiled steps under
-    torch.profiler give the device time per step by kernel class
-    (profile_summary)."""
-    import numpy as np
-
+    weights) and phase 2 (whole net), eager and then graphed in one call
+    (``paired_train_steps``: median of the WARM_STEPS timed steps after the
+    untimed ones, each ended by a synchronize, peak allocated memory, then
+    profiled steps: device time per step by kernel class, busy share,
+    kernels per step); --remat stays eager, by configuration. Then each
+    graphed step held to the eager one from the same state
+    (``graphed_vs_eager``: two train steps and an eval step)."""
     from mfas_tpu_torch import main_found_ntu as tmain
-    from mfas_tpu_torch.core.optim import make_adam
     from mfas_tpu_torch.data.ntu import Compose, NormalizeLen
     from mfas_tpu_torch.data.resident import ResidentLoader, ResidentNTUStore
-    from mfas_tpu_torch.engine.classifier import (WEIGHT_DECAY, place_batch,
-                                                  set_trainable)
+    from mfas_tpu_torch.engine.classifier import place_batch
 
     phase("warm train steps, full width, B=20")
-    n_warm, n_timed, n_prof = WARM_STEPS
     out = {}
     for mode, extra in (("f32", []), ("bf16", ["--bf16"]),
                         ("remat", ["--remat"])):
@@ -765,47 +1035,31 @@ def warm_train_steps(torch, work, packed):
                                  "--hbm_resident", *TRAIN_ARGV, *extra])
         model = tmain.build_model(args, tmain.FOUND_CONFS[4], "cuda")
         engine = tmain.make_engine(model, args, "cuda")
+        engine.generator.manual_seed(SEED)
         store = ResidentNTUStore(os.path.join(packed, "train"), "cuda",
                                  args=args)
         loader = ResidentLoader(store, args.batchsize,
                                 Compose([NormalizeLen(args.vid_len)]))
         batch = place_batch(next(iter(loader)), "cuda")
+        graphed = mode != "remat"
+        check(engine.graphed == graphed,
+              f"{mode}: engine.graphed {engine.graphed}")
         for name, prefixes in (("central", model.central_params()),
                                ("whole", None)):
-            set_trainable(model, prefixes)
-            model.train()
-            opt = make_adam(model.parameters(), WEIGHT_DECAY)
-            times = []
-            for i in range(n_warm + n_timed):
-                if i == n_warm:
-                    torch.cuda.reset_peak_memory_stats()
-                t0 = time.perf_counter()
-                loss, _ = engine._train_step(batch, opt, args.eta_max)
-                torch.cuda.synchronize()
-                times.append(time.perf_counter() - t0)
-                check(np.isfinite(float(loss)), f"{mode} {name}: loss {loss}")
-            ms = float(np.median(times[n_warm:])) * 1e3
-            r = {"step_ms": ms, "train_clips_per_s": args.batchsize / ms * 1e3,
-                 "peak_bytes": torch.cuda.max_memory_allocated(),
-                 "step_ms_all": [t * 1e3 for t in times],
-                 "card_state": card_state(f"after warm {mode} {name}")}
+            pair = paired_train_steps(
+                torch, work, f"warm {mode} {name}", engine, model, prefixes,
+                batch, args.eta_max, WARM_STEPS, graphed=graphed)
+            r = dict(pair["eager"])
+            r["train_clips_per_s"] = args.batchsize / r["step_ms"] * 1e3
+            r["card_state"] = card_state(f"after warm {mode} {name}")
+            if graphed:
+                r["graphed"] = pair["graphed"]
+                r["graphed_vs_eager"] = graphed_vs_eager(
+                    torch, f"warm {mode} {name}", engine, model, prefixes,
+                    [batch, batch], args.eta_max)
             out[f"{mode}_{name}"] = r
-            print(f"warm {mode} {name}: {ms:.1f} ms/step, "
-                  f"{r['train_clips_per_s']:.2f} train clips/s, peak "
-                  f"{r['peak_bytes'] / 2**30:.2f} GiB allocated "
-                  f"(steps {[round(t, 1) for t in r['step_ms_all']]} ms)")
-            r["profile"] = p = traced(
-                torch, work, f"warm_{mode}_{name}",
-                lambda: engine._train_step(batch, opt, args.eta_max), n_prof)
-            print(f"profile {mode} {name}, ms per step: wall (traced) "
-                  f"{p['wall_ms_traced']:.1f}, device busy "
-                  f"{p['device_busy_ms']:.1f} ({100 * p['busy_share']:.0f} % "
-                  f"of the kernel span), {p['kernels_per_step']:.0f} kernels; "
-                  + ", ".join(f"{c} {t:.2f}"
-                              for c, t in p["by_class_ms"].items()))
-            del opt
         del model, engine, store, loader, batch
-        torch.cuda.empty_cache()
+        free_card(torch)
     return out
 
 
@@ -875,7 +1129,7 @@ def card_vs_cpu(torch, packed):
         print(f"{name}: loss {float(loss):.12f}, {len(grads)} grads, "
               f"{len(stats)} BatchNorm statistics, {time.time() - t0:.1f} s")
         del model, engine, opt
-        torch.cuda.empty_cache()
+        free_card(torch)
         return float(loss), grads, stats
 
     def max_dev(a, b):
@@ -994,7 +1248,7 @@ def _search_run(torch, tk, seen, name, argv, want_k1, want_dtype,
     from mfas_tpu_torch import main_searchable_ntu as smain
     from mfas_tpu_torch.runtime import graphs
 
-    torch.cuda.empty_cache()
+    free_card(torch)
     torch.cuda.reset_peak_memory_stats()
     buf = io.StringIO()
     tk.reset_launch_counts()
@@ -1056,7 +1310,8 @@ def search_phase(torch, work, packed):
 
     (s1) default: train-mode f32 features every train batch, dev features
          cached; K1 runs once per train batch of every epoch of each of the
-         12 populations and once per dev batch: 2 x 3 x 12 + 3 = 75;
+         12 populations (inside the replayed features graph) and once per
+         dev batch: 2 x 3 x 12 + 3 = 75;
     (s2) --cache_features --batchnorm: bf16 bank built once, K1 (bf16 out)
          once per train and dev batch over the whole search: 3;
     (s3) --weightsharing --search_iterations 1 --max_fusions 1 --epochs 1
@@ -1128,7 +1383,11 @@ def search_phase(torch, work, packed):
         unwrap()
     # every EPNAS fit replays the surrogate's graphs; the bank's epochs
     # replay the fused-epoch graphs once per epoch and phase (2 train and 3
-    # dev steps, one graph each), the streamed path never
+    # dev steps, one graph each), the streamed path never; the streamed
+    # path replays its features and train step once per train batch and
+    # its eval step once per dev batch, captured once per population shape
+    # (P=32, P=15) in the process and the features once per trainer; the
+    # sequential candidates of (s3) replay the engine's graphs
     for name, pops_run in (("s1_default", 0), ("s2_cache_features", pops),
                            ("s4_first", fusions), ("s4_resume", fusions)):
         g = out[name]["graphs"]
@@ -1139,6 +1398,20 @@ def search_phase(torch, work, packed):
             got = g.get(prog, {}).get("replays", 0)
             check(got == pops_run * epochs,
                   f"{name}: {got} {prog} replays, want {pops_run * epochs}")
+        streamed = name == "s1_default"
+        for prog, per_pop in (("population_features", tb),
+                              ("population_train_step", tb),
+                              ("population_eval_step", db)):
+            got = g.get(prog, {"captures": 0, "replays": 0})
+            want = per_pop * epochs * pops if streamed else 0
+            check(got["replays"] == want and got["captures"] <= (
+                (1 if prog == "population_features" else 2) if streamed
+                else 0), f"{name}: {prog} {got}, want {want} replays")
+    g = out["s3_weightsharing"]["graphs"]
+    check(g.get("ClassifierEngine_train", {}).get("replays", 0)
+          == SEARCH_WS_ROWS * tb,
+          f"s3: the candidates' engine graphs {g}, want "
+          f"{SEARCH_WS_ROWS * tb} train replays")
     s1, s2 = out["s1_default"], out["s2_cache_features"]
     print(f"s2 vs s1: {s1['seconds'] / s2['seconds']:.2f}x faster")
     out["busy_share"] = search_busy_share(torch, work, base)
@@ -1192,11 +1465,14 @@ def search_busy_share(torch, work, base):
 
 
 def search_step_times(torch, work, s1_data):
-    """The search's two device loops apart, at the default search's shapes,
+    """The search's device loops apart, at the default search's shapes,
     each eager and graphed: a population train step and an eval step (B=20,
     hidden 16, drpt 0.5; P=32 as in the first EPNAS step, P=15 as in the
-    others) of the per-step loop (f32 features, torch's Adam) and of the
-    graphed bank epoch (a bf16 bank of GRAPH_BANK rows, one epoch a call);
+    others) of the streamed per-batch steps (f32 features, the functional
+    Adam; eager, and graphed as (s1) runs them, then held to each other by
+    ``streamed_vs_eager``) and of the graphed bank epoch (a bf16 bank of
+    GRAPH_BANK rows, one epoch a call); the streamed train-mode features at
+    full width (``streamed_features_times``);
     a surrogate fit step on (s1)'s final dataset (one Adam step on one
     sequence-length group, in fits of 10 epochs), graphed and as eager
     ``fit_epoch`` calls. Each: the median wall time of SEARCH_STEPS' timed
@@ -1206,7 +1482,6 @@ def search_step_times(torch, work, s1_data):
     import numpy as np
 
     from mfas_tpu_torch import main_searchable_ntu as smain
-    from mfas_tpu_torch.core.optim import make_adam
     from mfas_tpu_torch.fusion.layers import enumerate_layer_confs
     from mfas_tpu_torch.fusion.ntu import tap_sizes
     from mfas_tpu_torch.search import population as pop
@@ -1214,26 +1489,33 @@ def search_step_times(torch, work, s1_data):
     from mfas_tpu_torch.search.surrogate import SimpleRecurrentSurrogate
 
     phase("search: warm population steps and surrogate fit steps")
-    n_warm, n_timed, n_prof = SEARCH_STEPS
     dev = torch.device("cuda")
 
-    def measure(name, fn, per=1):
-        """fn's time and device busy share, per ``per`` steps it runs."""
+    def measure(name, fn, per=1, steps=SEARCH_STEPS):
+        """fn's time, peak allocated memory and device busy share, per
+        ``per`` steps it runs, over ``steps`` (untimed, timed, profiled)
+        calls."""
+        n_warm, n_timed, n_prof = steps
         times = []
+        torch.cuda.reset_peak_memory_stats()
         for _ in range(n_warm + n_timed):
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated()
+        reserved = torch.cuda.max_memory_reserved()
         p = traced(torch, work, "search_step", fn, n_prof, n_prof * per)
         r = {"ms": float(np.median(times[n_warm:])) * 1e3 / per,
              "busy_share": p["busy_share"],
              "device_busy_ms": p["device_busy_ms"],
-             "kernels": p["kernels_per_step"]}
+             "kernels": p["kernels_per_step"], "peak_bytes": peak,
+             "reserved_bytes": reserved}
         print(f"{name}: {r['ms']:.2f} ms, device busy "
               f"{r['device_busy_ms']:.3f} ms ({100 * r['busy_share']:.0f} % "
               f"of the kernel span), "
-              f"{r['kernels']:.0f} kernels", flush=True)
+              f"{r['kernels']:.0f} kernels, peak {peak / 2**30:.2f} GiB "
+              f"allocated, {reserved / 2**30:.2f} GiB reserved", flush=True)
         return r
 
     args = smain.parse_args(SEARCH_ARGV)
@@ -1253,18 +1535,28 @@ def search_step_times(torch, work, s1_data):
              torch.randint(0, 60, (B,), device=dev, generator=g),
              torch.ones(B, device=dev))
     out = {}
+    # the streamed per-batch steps (``_StreamedSteps``), eager (the
+    # per-step loop's functions) and graphed, as (s1) runs them
     for P in (32, 15):
         confs = [rows[rs.choice(32, 1 + p % 4)] for p in range(P)]
         params, bn = pop.init_population(confs, spec, seed=SEED, device=dev)
-        opt = make_adam(params.values(), spec.weight_decay)
         conf = pop.conf_tensors(confs, spec, dev)
-        out[f"population_train_step_P{P}"] = measure(
-            f"population train step P={P}",
-            lambda: pop.train_step(spec, params, bn, opt, conf, batch, 1e-3,
-                                   g))
-        out[f"population_eval_step_P{P}"] = measure(
-            f"population eval step P={P}",
-            lambda: pop.eval_step(spec, params, bn, conf, batch))
+        for mode in ("eager", "graphed"):
+            prog = pop._StreamedSteps(spec, params, bn, conf, device=dev,
+                                      graphed=mode == "graphed")
+            prog.load(params, bn, conf)
+            key = "" if mode == "eager" else "_streamed_graphed"
+            out[f"population_train_step_P{P}{key}"] = measure(
+                f"population train step P={P}, {mode}",
+                lambda: prog.train_batch(batch[:4], batch[4], batch[5],
+                                         1e-3, g))
+            out[f"population_eval_step_P{P}{key}"] = measure(
+                f"population eval step P={P}, {mode}",
+                lambda: prog.eval_batch(batch))
+            del prog
+    out["streamed_graphed_vs_eager"] = streamed_vs_eager(
+        torch, spec, rows, rs, batch, dev)
+    out.update(streamed_features_times(torch, args, measure, dev))
 
     # the bank's fused epoch, graphed, at the same shapes: one epoch of
     # GRAPH_BANK[0] / B steps per call
@@ -1307,6 +1599,94 @@ def search_step_times(torch, work, s1_data):
 
     out["surrogate_fit_step_eager"] = measure(
         f"surrogate fit step, eager ({what})", eager_fit, per=10)
+    return out
+
+
+def streamed_vs_eager(torch, spec, rows, rs, batch, dev):
+    """The streamed train step (P=32) twice and an eval step, graphed once
+    and eager twice from one state and generator seed, held to each other
+    (``held_to_eager``): parameters, BatchNorm state, Adam state, correct
+    counts and the generator's state."""
+    from mfas_tpu_torch.search import population as pop
+
+    confs = [rows[rs.choice(32, 1 + p % 4)] for p in range(32)]
+    params, bn = pop.init_population(confs, spec, seed=SEED, device=dev)
+    conf = pop.conf_tensors(confs, spec, dev)
+    runs = []
+    for mode in ("graphed", "eager", "eager"):
+        prog = pop._StreamedSteps(spec, params, bn, conf, device=dev,
+                                  graphed=mode == "graphed")
+        prog.load(params, bn, conf)
+        g = torch.Generator(device=dev).manual_seed(SEED + 3)
+        got = {}
+        for i in range(2):
+            prog.train_batch(batch[:4], batch[4], batch[5], 1e-3, g)
+            got[f"corr{i}"] = prog.counts("corr")
+        prog.eval_batch(batch)
+        got["dev_corr"] = prog.counts("dev_corr")
+        p, b = prog.state()
+        got.update({f"param/{k}": v for k, v in p.items()})
+        got.update({f"bn/{k}": v for k, v in b.items()})
+        got.update({f"adam/m{i}": t.clone()
+                    for i, t in enumerate(prog.st["adam"]["m"])})
+        got.update({f"adam/v{i}": t.clone()
+                    for i, t in enumerate(prog.st["adam"]["v"])})
+        got["adam/step"] = prog.st["adam"]["step"].clone()
+        got["generator"] = g.get_state()
+        runs.append(got)
+        del prog
+    return held_to_eager(torch, "streamed population step P=32", runs)
+
+
+def streamed_features_times(torch, args, measure, dev):
+    """The streamed path's train-mode features at (s1)'s shapes (B=20, 8
+    frames of 256x256, the full-width backbones, K1 inside), eager and
+    graphed (``PopulationTrainer.streamed_features``), timed by
+    ``measure``; the graphed features held to the eager ones from one
+    generator state, and one K1 launch per replay."""
+    import numpy as np
+
+    from mfas_tpu_torch.data.ntu_pack import make_device_normalize_inputs_prep
+    from mfas_tpu_torch.fusion.ntu import NTUFeatureExtractor, tap_sizes
+    from mfas_tpu_torch.ops import input_kernels as tk
+    from mfas_tpu_torch.search import population as pop
+
+    ske, ims = tap_sizes(args)
+    spec = pop.PopulationSpec(
+        sizes_a=tuple(ske), sizes_b=tuple(ims),
+        hidden=args.inner_representation_size, num_outputs=args.num_outputs,
+        max_rows=args.max_progression_levels, drpt=args.drpt)
+    trainer = pop.PopulationTrainer(
+        spec, NTUFeatureExtractor(
+            args, device=dev, generator=torch.Generator().manual_seed(SEED)),
+        device=dev, input_prep=make_device_normalize_inputs_prep())
+    check(trainer.graphed, "the streamed trainer is not graphed on the card")
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    B, T = args.batchsize, args.vid_len[0]
+    inputs = (torch.randint(0, 256, (B, T, 256, 256, 3), dtype=torch.uint8,
+                            device=dev, generator=g),
+              torch.randn((B, 3, args.vid_len[1], 25, 2), device=dev,
+                          generator=g) * 0.3)
+    out = {"streamed_features_eager": measure(
+        "streamed features (train mode, K1), eager",
+        lambda: trainer._features(inputs, True), steps=FEATURE_STEPS)}
+    out["streamed_features_graphed"] = measure(
+        "streamed features (train mode, K1), graphed",
+        lambda: trainer.streamed_features(inputs), steps=FEATURE_STEPS)
+    runs = []
+    for mode in ("graphed", "eager", "eager"):
+        trainer.generator.manual_seed(SEED + 5)
+        tk.reset_launch_counts()
+        feats = (trainer.streamed_features(inputs) if mode == "graphed"
+                 else trainer._features(inputs, True))
+        check(tk.launch_counts["u8_normalize"] == 1,
+              f"streamed features {mode}: K1 launches {tk.launch_counts}")
+        runs.append({**{f"feat{i}": f for i, f in enumerate(feats)},
+                     "generator": trainer.generator.get_state()})
+    out["streamed_features_graphed_vs_eager"] = held_to_eager(
+        torch, "streamed features", runs)
+    del trainer, inputs
+    free_card(torch)
     return out
 
 
@@ -1362,17 +1742,16 @@ def graphs_phase(torch, s1_data):
          and generator seed: parameters, BatchNorm state, correct counts
          and the generator's state after, bitwise (else within 1e-6); then
          in float64 with --alphas at a learning rate of 1e-6, the graphed
-         epoch against the per-step loop (``population.train_step``,
-         torch's Adam, batches gathered on the host's index rows): within
-         1e-9 (the two Adams differ in float32 against float64 bias
-         corrections only), the same correct counts and generator state.
+         epoch against the per-step loop (``population.train_step``, the
+         same ``adam_update``, batches gathered on the host's index rows):
+         within 1e-9, the same correct counts and generator state.
     Captures and replays of each program are printed."""
     import dataclasses
 
     import numpy as np
 
     from mfas_tpu_torch import main_searchable_ntu as smain
-    from mfas_tpu_torch.core.optim import make_adam
+    from mfas_tpu_torch.core.optim import adam_init
     from mfas_tpu_torch.fusion.layers import enumerate_layer_confs
     from mfas_tpu_torch.fusion.ntu import tap_sizes
     from mfas_tpu_torch.runtime import graphs
@@ -1508,11 +1887,11 @@ def graphs_phase(torch, s1_data):
     (pg, bg) = prog.state()
     trainer = pop.PopulationTrainer(spec64, torch.nn.Sequential(),
                                     device=dev)
-    opt = make_adam(params.values(), spec64.weight_decay)
+    adam = adam_init(list(params.values()))
     g_loop = torch.Generator(device=dev).manual_seed(SEED + 1)
     terms = []
     for take_s, wm_s, eta in zip(take, wm, etas):
-        bn, _, c = pop.train_step(spec64, params, bn, opt, conf,
+        bn, _, c = pop.train_step(spec64, params, bn, adam, conf,
                                   trainer._bank_batch(bank, take_s, wm_s),
                                   float(eta), g_loop)
         terms.append(c)
@@ -1550,7 +1929,7 @@ def search_card_vs_cpu(torch, packed):
     import numpy as np
 
     from mfas_tpu_torch import main_searchable_ntu as smain
-    from mfas_tpu_torch.core.optim import make_adam
+    from mfas_tpu_torch.core.optim import adam_init
     from mfas_tpu_torch.data.ntu import Compose, NormalizeLen
     from mfas_tpu_torch.data.ntu_pack import (
         PackedNTU, make_device_normalize_inputs_prep)
@@ -1618,12 +1997,12 @@ def search_card_vs_cpu(torch, packed):
         params = {k: v.detach().double().requires_grad_(True)
                   for k, v in params.items()}
         bn = {k: v.double() for k, v in bn.items()}
-        opt = make_adam(params.values(), spec.weight_decay)
+        adam = adam_init(list(params.values()))
         batch = tuple(torch.from_numpy(np.asarray(x)).to(dev)
                       for x in batch_np)
         t0 = time.time()
         new_bn, loss, corr = pop.train_step(
-            spec, params, bn, opt, pop.conf_tensors(confs, spec, dev), batch,
+            spec, params, bn, adam, pop.conf_tensors(confs, spec, dev), batch,
             1e-3)
         out = {"loss": loss, "corrects": corr,
                **{f"grad/{k}": p.grad for k, p in params.items()},
@@ -1723,14 +2102,24 @@ def avmnist_found(torch, work, store):
 
     from mfas_tpu_torch import main_found_avmnist as fmain
     from mfas_tpu_torch.data.avmnist import train_dev_split
+    from mfas_tpu_torch.runtime import graphs
 
     phase("AV-MNIST (v1) found training, full width")
     base = ["--datadir", store, "--checkpointdir", work, *AV_FOUND_ARGV]
-    torch.cuda.empty_cache()
+    free_card(torch)
+    graphs.reset_graph_counts()
     t0 = time.time()
     run, out = _quiet(fmain.main, base + ["--save_checkpoint"])
     seconds = time.time() - t0
+    gc = {k: dict(v) for k, v in graphs.GRAPH_COUNTS.items()}
     n_train = train_dev_split(AV_FOUND_STORE[0])[0]
+    # a train graph per phase, replayed per batch; the dev and test splits
+    # share their batch shape, so the eval graphs are captured per phase
+    check(gc.get("ClassifierEngine_train") == {
+        "captures": 2, "replays": 2 * -(-n_train // 128)}
+        and gc.get("ClassifierEngine_eval", {}).get("captures") == 2,
+        f"v1: graph counts {gc}")
+    print(f"v1: graph captures and replays {gc}", flush=True)
     losses = [e["loss"] for r in run.train for e in r.epochs]
     check([r.train_clips for r in run.train] == [n_train, n_train],
           f"v1: train clips {[r.train_clips for r in run.train]}")
@@ -1752,7 +2141,7 @@ def avmnist_found(torch, work, store):
          "train_peak_bytes": run.train_peak_bytes,
          "eval_clips_per_s": run.eval.clips / run.eval.seconds,
          "test_cp_eval_clips_per_s": again.eval.clips / again.eval.seconds,
-         "checkpoint": os.path.basename(run.saved)}
+         "checkpoint": os.path.basename(run.saved), "graph_counts": gc}
     print(f"v1: {seconds:.1f} s; phase 1 / phase 2 train clips/s "
           f"{r['train_clips_per_s'][0]:.0f} / {r['train_clips_per_s'][1]:.0f}"
           f" (whole epochs, loader included), peak "
@@ -1765,21 +2154,17 @@ def avmnist_found(torch, work, store):
 
 
 def avmnist_warm_steps(torch, work, store):
-    """Warm phase-2 train steps of the (v1) net on one placed batch of 128
-    (median of AV_WARM's timed steps after its untimed ones, each ended by
-    a synchronize), peak allocated memory over them, then profiled steps
-    (device time by kernel class, busy share); and the host side apart: the
-    train ArrayLoader's batches (fancy index of 128 rows, 6.8 MB) placed on
-    the card, per batch."""
+    """Warm phase-2 train steps of the (v1) net on one placed batch of 128,
+    eager and then graphed (``paired_train_steps`` at AV_WARM), the graphed
+    step held to the eager one from the same state (``graphed_vs_eager``);
+    and the host side apart: the train ArrayLoader's batches (fancy index
+    of 128 rows, 6.8 MB) placed on the card, per batch."""
     import numpy as np
 
     from mfas_tpu_torch import main_found_avmnist as fmain
-    from mfas_tpu_torch.core.optim import make_adam
     from mfas_tpu_torch.data.avmnist import load_avmnist_arrays
     from mfas_tpu_torch.data.loader import ArrayLoader
-    from mfas_tpu_torch.engine.classifier import (WEIGHT_DECAY,
-                                                  ClassifierEngine,
-                                                  place_batch, set_trainable)
+    from mfas_tpu_torch.engine.classifier import ClassifierEngine, place_batch
 
     phase("AV-MNIST warm phase-2 steps, full width, B=128")
     n_warm, n_timed, n_prof = AV_WARM
@@ -1799,37 +2184,21 @@ def avmnist_warm_steps(torch, work, store):
     model = fmain.build_model(args, fmain.FOUND_CONFS[0], "cuda")
     engine = ClassifierEngine(model, "cuda", multitask=args.multitask,
                               input_keys=("image", "audio"))
-    set_trainable(model, None)
-    model.train()
-    opt = make_adam(model.parameters(), WEIGHT_DECAY)
-    times = []
-    for i in range(n_warm + n_timed):
-        if i == n_warm:
-            torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        loss, _ = engine._train_step(batch, opt, args.eta_max)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        check(np.isfinite(float(loss)), f"AV-MNIST warm step: loss {loss}")
-    ms = float(np.median(times[n_warm:])) * 1e3
-    r = {"step_ms": ms, "train_clips_per_s": args.batchsize / ms * 1e3,
-         "peak_bytes": torch.cuda.max_memory_allocated(),
-         "step_ms_all": [t * 1e3 for t in times],
-         "loader_batch_ms": loader_ms}
-    r["profile"] = p = traced(
-        torch, work, "avmnist_warm",
-        lambda: engine._train_step(batch, opt, args.eta_max), n_prof)
+    engine.generator.manual_seed(SEED)
+    pair = paired_train_steps(torch, work, "AV-MNIST warm phase 2", engine,
+                              model, None, batch, args.eta_max, AV_WARM)
+    r = dict(pair["eager"])
+    r.update(train_clips_per_s=args.batchsize / r["step_ms"] * 1e3,
+             loader_batch_ms=loader_ms, graphed=pair["graphed"])
+    r["graphed_vs_eager"] = graphed_vs_eager(
+        torch, "AV-MNIST phase 2", engine, model, None,
+        [batch, place_batch(next(it), "cuda")], args.eta_max)
     r["card_state"] = card_state("after AV-MNIST warm steps")
-    print(f"AV-MNIST warm phase 2: {ms:.2f} ms/step, "
-          f"{r['train_clips_per_s']:.0f} train clips/s, peak "
-          f"{r['peak_bytes'] / 2**30:.2f} GiB; device busy "
-          f"{p['device_busy_ms']:.2f} ms ({100 * p['busy_share']:.0f} % of "
-          f"the kernel span), {p['kernels_per_step']:.0f} kernels; "
-          + ", ".join(f"{c} {t:.2f}" for c, t in p["by_class_ms"].items())
-          + f"; ArrayLoader batch placed on the card {loader_ms:.2f} ms",
-          flush=True)
-    del model, engine, opt, batch, arrays
-    torch.cuda.empty_cache()
+    print(f"AV-MNIST warm phase 2: eager {r['step_ms']:.2f} ms/step, "
+          f"graphed {r['graphed']['step_ms']:.2f} ms/step; ArrayLoader "
+          f"batch placed on the card {loader_ms:.2f} ms", flush=True)
+    del model, engine, batch, arrays
+    free_card(torch)
     return r
 
 
@@ -1841,7 +2210,7 @@ def _cli_search(torch, smain, name, argv, want_candidates):
 
     from mfas_tpu_torch.runtime import graphs
 
-    torch.cuda.empty_cache()
+    free_card(torch)
     torch.cuda.reset_peak_memory_stats()
     graphs.reset_graph_counts()
     run, out = _quiet(smain.main, argv)
@@ -2037,7 +2406,7 @@ def avmnist_card_vs_cpu(torch, store):
           f"({worst}) over {len(devs)} tensors")
     check(devs[worst] <= 1e-3, f"AV-MNIST found step card vs CPU {worst}: "
           f"{devs[worst]} of max")
-    torch.cuda.empty_cache()
+    free_card(torch)
     return {"extractor_tap_dev": tap_dev["eval"],
             "extractor_train_mode_tap_dev": tap_dev["train"],
             "found_step_f64_grad_dev": devs[worst],
@@ -2157,7 +2526,7 @@ def _mmimdb_run(torch, name, argv):
 
     from mfas_tpu_torch import main_found_mmimdb as mmain
 
-    torch.cuda.empty_cache()
+    free_card(torch)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     run, out = _quiet(mmain.main, argv)
@@ -2317,7 +2686,7 @@ def mmimdb_warm_steps(torch, work, store):
     print(f"m3: MMIMDBLoader batch of 64 posters read, collated and placed "
           f"on the card {out['loader_batch_ms']:.2f} ms", flush=True)
     del model, engine, batch
-    torch.cuda.empty_cache()
+    free_card(torch)
     return out
 
 
@@ -2464,7 +2833,7 @@ def mmimdb_card_vs_cpu(torch, store):
           f"{out['recurrent_f32_dev']:.3e} of max")
     check(out["recurrent_f32_dev"] <= 1e-4,
           f"m5: SimpleRecurrentModel card vs CPU {out['recurrent_f32_dev']}")
-    torch.cuda.empty_cache()
+    free_card(torch)
     return out
 
 
@@ -2507,7 +2876,7 @@ CIFAR_WS_ROWS = 4           # (c4): the first step cut to this many rows
 # (c3): the first step's block rows cut to the first 12 of the 80, so the
 # script keeps near its time with phases (i) and (d) added
 CIFAR_SEARCH_ROWS = 12
-CIFAR_WARM = (3, 20, 5)     # warm train steps: untimed, timed, profiled
+CIFAR_WARM = (3, 10, 3)     # warm train steps: untimed, timed, profiled
 CIFAR_STEP_IMAGES = 16      # (c5) the f64 step's batch
 CIFAR_DROPPATH_DRAWS = 2000
 
@@ -2549,15 +2918,24 @@ def cifar_found(torch, work, store):
     import numpy as np
 
     from mfas_tpu_torch import main_found_cifar as fmain
+    from mfas_tpu_torch.data.cifar import train_split
+    from mfas_tpu_torch.runtime import graphs
     from mfas_tpu_torch.runtime.checkpoint import load_state_dict
 
     phase("CIFAR (c1) found net, full width")
-    torch.cuda.empty_cache()
+    free_card(torch)
+    graphs.reset_graph_counts()
     t0 = time.time()
     run, out = _quiet(fmain.main, ["--data_dir", store, "--checkpointdir",
                                    work, *CIFAR_FOUND_ARGV,
                                    "--save_checkpoint"])
     seconds = time.time() - t0
+    gc = {k: dict(v) for k, v in graphs.GRAPH_COUNTS.items()}
+    n_train = train_split(CIFAR_FOUND_STORE[0] * 5)[0]
+    check(gc.get("CifarEngine_train") == {
+        "captures": 1, "replays": -(-n_train // 128)},
+        f"c1: graph counts {gc}")
+    print(f"c1: graph captures and replays {gc}", flush=True)
     epochs = run.train[0].epochs
     losses = [e["loss"] for e in epochs]
     check(all(np.isfinite(losses)) and run.acc > 0.2,
@@ -2574,7 +2952,8 @@ def cifar_found(torch, work, store):
          "peak_bytes": run.train_peak_bytes[0],
          "eval_samples_per_s": run.eval.clips / run.eval.seconds,
          "checkpoint": os.path.basename(run.saved),
-         "parameters": sum(p.numel() for p in fresh.parameters())}
+         "parameters": sum(p.numel() for p in fresh.parameters()),
+         "graph_counts": gc}
     print(f"c1: {seconds:.1f} s; Model Acc {run.acc}; epochs "
           + ", ".join(f"{e['phase']} {e['loss']:.4f}/{e['acc']:.4f}"
                       for e in epochs)
@@ -2588,19 +2967,20 @@ def cifar_found(torch, work, store):
 
 def cifar_warm_steps(torch, work, store):
     """(c2) warm train steps of the (c1) net (--use_intermediate, train-
-    mode DropPath and dropout) on one placed batch of 128: the median of
-    CIFAR_WARM's timed steps after its untimed ones, peak memory, the same
-    steps with torch's plain Adam step in place of the engine's skip of
-    all-zero gradients, then profiled steps (device time by kernel class, busy share, kernels per
-    step); and the host side apart: the train CifarLoader's batch (128
-    images cropped, flipped and normalized in numpy) placed on the card."""
+    mode DropPath and dropout) on one placed batch of 128, eager and then
+    graphed (``paired_train_steps`` at CIFAR_WARM); the eager steps with
+    torch's plain Adam step in place of the engine's skip of all-zero
+    gradients; the graphed step held to the eager one from the same state
+    (``graphed_vs_eager``: DropPath's draws and the skip inside the graph);
+    and the host side apart: the train CifarLoader's batch (128 images
+    cropped, flipped and normalized in numpy) placed on the card."""
     import numpy as np
 
     from mfas_tpu_torch import main_found_cifar as fmain
     from mfas_tpu_torch.data.cifar import (CifarLoader, load_cifar10_arrays,
                                            train_split)
     from mfas_tpu_torch.engine.cifar import CifarEngine
-    from mfas_tpu_torch.engine.classifier import place_batch, set_trainable
+    from mfas_tpu_torch.engine.classifier import place_batch
 
     phase("CIFAR (c2) warm train steps, full width, B=128")
     n_warm, n_timed, n_prof = CIFAR_WARM
@@ -2621,47 +3001,32 @@ def cifar_warm_steps(torch, work, store):
     model = fmain.build_model(args, fmain.parse_conf(args.conf), "cuda")
     engine = CifarEngine(model, "cuda", use_intermediate=True)
     engine.generator.manual_seed(SEED)
-    set_trainable(model, None)
-    model.train()
-    opt = engine.make_optimizer()
-
-    def timed_steps(n_skip, n):
-        times = []
-        for i in range(n_skip + n):
-            if i == n_skip:
-                torch.cuda.reset_peak_memory_stats()
-            t0 = time.perf_counter()
-            loss, _ = engine._train_step(batch, opt, args.eta_max)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-            check(np.isfinite(float(loss)), f"c2: loss {loss}")
-        return times
-
-    times = timed_steps(n_warm, n_timed)
-    ms = float(np.median(times[n_warm:])) * 1e3
-    r = {"step_ms": ms, "train_samples_per_s": args.batchsize / ms * 1e3,
-         "peak_bytes": torch.cuda.max_memory_allocated(),
-         "step_ms_all": [t * 1e3 for t in times],
-         "loader_batch_ms": loader_ms}
-    # what the JAX package's skip-on-zero Adam rule costs: the same steps
-    # with torch's plain Adam step (every parameter with a grad stepped)
+    pair = paired_train_steps(torch, work, "c2 warm", engine, model, None,
+                              batch, args.eta_max, CIFAR_WARM)
+    r = dict(pair["eager"])
+    r.update(train_samples_per_s=args.batchsize / r["step_ms"] * 1e3,
+             loader_batch_ms=loader_ms, graphed=pair["graphed"])
+    # what the JAX package's skip-on-zero Adam rule costs: the same eager
+    # steps with torch's plain Adam step (every parameter with a grad
+    # stepped)
     engine._optimizer_step = lambda o: o.step()
-    r["plain_adam_step_ms"] = float(np.median(timed_steps(0, n_timed))) * 1e3
+    plain = paired_train_steps(torch, work, "c2 plain Adam", engine, model,
+                               None, batch, args.eta_max,
+                               (1, CIFAR_WARM[1], 1), graphed=False)
+    r["plain_adam_step_ms"] = plain["eager"]["step_ms"]
     del engine._optimizer_step
-    r["profile"] = p = traced(
-        torch, work, "cifar_warm",
-        lambda: engine._train_step(batch, opt, args.eta_max), n_prof)
+    r["graphed_vs_eager"] = graphed_vs_eager(
+        torch, "c2", engine, model, None,
+        [batch, place_batch(next(it), "cuda")], args.eta_max)
     r["card_state"] = card_state("after CIFAR warm steps")
-    print(f"c2: {ms:.2f} ms/step, {r['train_samples_per_s']:.0f} train "
-          f"samples/s, peak {r['peak_bytes'] / 2**30:.2f} GiB; device busy "
-          f"{p['device_busy_ms']:.2f} ms ({100 * p['busy_share']:.0f} % of "
-          f"the kernel span), {p['kernels_per_step']:.0f} kernels; "
-          + ", ".join(f"{c} {t:.2f}" for c, t in p["by_class_ms"].items())
-          + f"; CifarLoader batch placed on the card {loader_ms:.2f} ms; "
-          f"with torch's plain Adam step {r['plain_adam_step_ms']:.2f} "
-          f"ms/step", flush=True)
-    del model, engine, opt, batch, arrays
-    torch.cuda.empty_cache()
+    print(f"c2: eager {r['step_ms']:.2f} ms/step, graphed "
+          f"{r['graphed']['step_ms']:.2f} ms/step, "
+          f"{r['train_samples_per_s']:.0f} train samples/s eager; "
+          f"CifarLoader batch placed on the card {loader_ms:.2f} ms; with "
+          f"torch's plain Adam step {r['plain_adam_step_ms']:.2f} ms/step "
+          "eager", flush=True)
+    del model, engine, batch, arrays
+    free_card(torch)
     return r
 
 
@@ -2680,6 +3045,7 @@ def cifar_search(torch, work, store):
     import numpy as np
 
     from mfas_tpu_torch import main_searchable_cifar as smain
+    from mfas_tpu_torch.data.cifar import train_split
     from mfas_tpu_torch.fusion import cifar as f_cifar
     from mfas_tpu_torch.search import searcher as tsearcher
     from mfas_tpu_torch.search import trainers as ttrainers
@@ -2735,6 +3101,16 @@ def cifar_search(torch, work, store):
           f"uninterrupted run's, accuracies within {diff:.3e}", flush=True)
     check(diff <= 1.0 / 256 + 1e-7, f"c3: resumed accuracies differ by "
           f"{diff} from the uninterrupted run's")
+    # every candidate captured its own train graph (JAX compiles each) and
+    # replayed it once per train batch
+    n_batches = -(-train_split(CIFAR_SEARCH_STORE[0] * 5)[0] // 128)
+    for name, n in (("c3_search", CIFAR_SEARCH_ROWS + 4), ("c3_resumed", 4)):
+        g = out[name]["graphs"].get("CifarEngine_train", {})
+        check(g == {"captures": n, "replays": n * n_batches},
+              f"{name}: CifarEngine_train graphs {g}, want {n} captures and "
+              f"{n * n_batches} replays")
+    out["c3_capture_cost"] = cifar_capture_cost(
+        torch, smain.parse_args(base), cut[0])
 
     phase("CIFAR (c4) a sequential --weightsharing step")
     rows = layer_confs(0)[:CIFAR_WS_ROWS]
@@ -2761,6 +3137,74 @@ def cifar_search(torch, work, store):
     print(f"c4: the store holds the last candidate's {len(store_keys)} "
           f"keys only", flush=True)
     return out
+
+
+def cifar_capture_cost(torch, args, conf):
+    """What a (c3) candidate's graphs cost against the steps they save: the
+    candidate net of ``conf`` (search mode, --planes 36) at B=128 on one
+    batch of (c3)'s store; the first graphed train step (two warm-up
+    steps, the capture and one replay) and the first eval step against the
+    median of CIFAR_WARM[1] replays, and the median eager step, in one
+    call. Break-even: the capture's extra time over the time a replay saves
+    per step, against the steps a candidate trains."""
+    import numpy as np
+
+    from mfas_tpu_torch.data.cifar import (CifarLoader, load_cifar10_arrays,
+                                           train_split)
+    from mfas_tpu_torch.engine.cifar import CifarEngine
+    from mfas_tpu_torch.engine.classifier import place_batch, set_trainable
+    from mfas_tpu_torch.fusion.cifar import Searchable_MicroCNN
+    from mfas_tpu_torch.search.trainers import CifarSearchTrainer
+
+    arrays = load_cifar10_arrays(args.data_dir, train=True)
+    split = train_split(arrays["image"].shape[0])[0]
+    batch = place_batch(next(iter(CifarLoader(
+        arrays, args.batchsize, train=True, seed=0,
+        indices=np.arange(0, split)))), "cuda")
+    model = CifarSearchTrainer(device="cuda").build_model(
+        Searchable_MicroCNN, args, np.asarray([conf]))
+    engine = CifarEngine(model, "cuda")
+    set_trainable(model, None)
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    r = {}
+    for mode in ("eager", "graphed"):
+        engine.graphed = mode == "graphed"
+        model.train()
+        opt = engine.make_optimizer()
+        first = timed(lambda: engine.train_step(batch, opt, 1e-3))
+        steps = [timed(lambda: engine.train_step(batch, opt, 1e-3))
+                 for _ in range(CIFAR_WARM[1])]
+        model.eval()
+        first_eval = timed(lambda: engine.eval_step(batch))
+        evals = [timed(lambda: engine.eval_step(batch)) for _ in range(5)]
+        r[mode] = {"first_step_ms": first, "step_ms": float(np.median(steps)),
+                   "first_eval_ms": first_eval,
+                   "eval_ms": float(np.median(evals))}
+        engine.release_graphs()
+        del opt
+    e, g = r["eager"], r["graphed"]
+    capture = ((g["first_step_ms"] - g["step_ms"])
+               + (g["first_eval_ms"] - g["eval_ms"]))
+    saved = e["step_ms"] - g["step_ms"]
+    steps = -(-split // args.batchsize)
+    r.update(capture_ms=capture, saved_ms_per_step=saved,
+             steps_per_candidate=steps,
+             break_even_steps=capture / saved if saved > 0 else None)
+    print(f"c3 capture cost: a candidate's train and eval captures take "
+          f"{capture:.1f} ms over their replays; a replayed step "
+          f"{g['step_ms']:.2f} ms against {e['step_ms']:.2f} eager saves "
+          f"{saved:.2f} ms, so the captures pay back after "
+          + (f"{capture / saved:.1f}" if saved > 0 else "no")
+          + f" steps of the {steps} a candidate trains", flush=True)
+    del model, engine, batch
+    free_card(torch)
+    return r
 
 
 def cifar_card_vs_cpu(torch, store):
@@ -2975,7 +3419,7 @@ def cifar_card_vs_cpu(torch, store):
           f"the first {both} times", flush=True)
     check(0.87 <= share <= 0.93 and both == 0,
           f"c5: DropPath kept share {share}, both dropped {both}")
-    torch.cuda.empty_cache()
+    free_card(torch)
     return out
 
 
@@ -3141,7 +3585,7 @@ def _eval_run(torch, tk, name, argv):
 
     from mfas_tpu_torch import main_found_ntu as tmain
 
-    torch.cuda.empty_cache()
+    free_card(torch)
     tk.reset_launch_counts()
     t0 = time.time()
     run, out = _quiet(tmain.main, argv)
@@ -3315,7 +3759,7 @@ def serve(torch, tk, name, work, export_argv, predict_argv, want,
     phase(f"(i6) {name}: export, check, predict")
     vertical = export_argv[0]
     art = os.path.join(work, f"{vertical}.pt2")
-    torch.cuda.empty_cache()
+    free_card(torch)
     rec, out = _quiet(export_model.main, export_argv + [
         "--polymorphic_batch", "--check", "--out", art])
     check("check OK: reloaded artifact ran on cuda" in out,
@@ -3570,7 +4014,7 @@ def profile_runs(torch, tk):
     out = {}
     for name, argv in PROFILE_RUNS:
         phase(f"(t2) profile_step {' '.join(argv)}")
-        torch.cuda.empty_cache()
+        free_card(torch)
         tk.reset_launch_counts()
         t0 = time.time()
         r, text = _quiet(profile_step.main, argv)
@@ -3661,7 +4105,7 @@ def tools_phase(torch, tk, work, root, search):
     tk.reset_launch_counts()
     out = {"t1_conversion": conversion(torch, work, root)}
     add(tk.launch_counts)
-    torch.cuda.empty_cache()
+    free_card(torch)
     out["t2_profile_step"] = profile_runs(torch, tk)
     for r in out["t2_profile_step"].values():
         add(r["input_kernel_launches"])
@@ -3790,7 +4234,7 @@ def rank_main(argv):
     try:
         for case in cases:
             res[case] = RANK_CASES[case](torch, rank, world, addr, work)
-            torch.cuda.empty_cache()
+            free_card(torch)
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
@@ -4015,7 +4459,7 @@ def rank_d2(torch, rank, world, addr, work):
             out[name]["params_bitwise_across_ranks"] = _equal_across_ranks(
                 torch, _flat_params(torch, model), group)
         del model, grads, stats
-        torch.cuda.empty_cache()
+        free_card(torch)
     if group is None:
         torch.save(res, os.path.join(work, "d2_ref.pt"))
         return {k: {**out[k], "loss": res[k]["loss"]} for k in out}
@@ -4214,7 +4658,7 @@ def multi_gpu_phase(torch, work, train):
 
     out = {"label": TIME_SHARING}
     t0 = time.time()
-    torch.cuda.empty_cache()
+    free_card(torch)
 
     phase("(d1) NCCL at world 1 through --dist_*")
     (d1,), out["d1_seconds"] = run_rank_processes(["d1"], 1, work)
@@ -4245,7 +4689,7 @@ def multi_gpu_phase(torch, work, train):
     write_d4_store(work)
     print(f"(d4) store written in {time.time() - t1:.1f} s", flush=True)
     d4_one = d4_search(torch, d4_argv(work))
-    torch.cuda.empty_cache()
+    free_card(torch)
     # one pair of rank processes runs (d2)-(d5) in turn
     phase(f"(d2)-(d5) over two ranks ({TIME_SHARING})")
     os.makedirs(os.path.join(work, "d3"))
@@ -4537,7 +4981,7 @@ def channels_last_training(torch, tk, work, packed, train):
     want_acc = train["a_resident_f32"]["model_acc"]
     base = ["--checkpointdir", work, "--packed_datadir", packed, *TRAIN_ARGV,
             "--hbm_resident"]
-    torch.cuda.empty_cache()
+    free_card(torch)
     tk.reset_launch_counts()
     before = F.OPTION_CALLS["conv_channels_last"]
     t0 = time.time()
@@ -4595,7 +5039,7 @@ def channels_last_training(torch, tk, work, packed, train):
                           f"({t['peak_bytes'] / 2**30:.2f} GiB)"
                           for t in turns), flush=True)
         del nets, engine, opt, store, loader, batch
-        torch.cuda.empty_cache()
+        free_card(torch)
     return out
 
 
@@ -4683,7 +5127,7 @@ def baselines_phase(torch, tk):
               f"{r['eval_clips_per_s']:.2f} clips/s (K1 included), peak "
               f"{r['peak_bytes'] / 2**30:.2f} GiB", flush=True)
         del net, clips, logits
-        torch.cuda.empty_cache()
+        free_card(torch)
     counts = dict(tk.launch_counts)
     want = (len(BASELINES) + 1) * (n_warm + n_timed)
     check(counts == {"u8_normalize": want, "u8_gather_normalize": 0},
@@ -4767,11 +5211,11 @@ def ntu_rest_phase(torch, tk, work, packed, train):
     t0 = time.time()
     phase("(n1) the layout options at full-width shapes")
     out = {"n1_layout_options": layout_options_full_width(torch)}
-    torch.cuda.empty_cache()
+    free_card(torch)
     out["n2_channels_last"] = channels_last_training(torch, tk, work, packed,
                                                      train)
     out["n3_sweep"] = sweep_run(torch)
-    torch.cuda.empty_cache()
+    free_card(torch)
     out["n4_baselines"] = baselines_phase(torch, tk)
     out["seconds"] = time.time() - t0
     print(f"phase (n): {out['seconds']:.1f} s", flush=True)
@@ -4905,7 +5349,7 @@ def main():
             print(line.strip())
 
     err, ms = kernel_phases(torch, tk)
-    torch.cuda.empty_cache()
+    free_card(torch)
 
     work = os.path.join(root, "build", "chip_smoke")
     shutil.rmtree(work, ignore_errors=True)
@@ -4913,15 +5357,15 @@ def main():
     try:
         packed = write_store(work)
         runs = slice_phase(torch, work, packed)
-        torch.cuda.empty_cache()
+        free_card(torch)
         train = training_phase(torch, work, packed)
-        torch.cuda.empty_cache()
+        free_card(torch)
         warm = warm_train_steps(torch, work, packed)
         step = card_vs_cpu(torch, packed)
-        torch.cuda.empty_cache()
+        free_card(torch)
         search = search_phase(torch, work, packed)
         search["card_vs_cpu"] = search_card_vs_cpu(torch, packed)
-        torch.cuda.empty_cache()
+        free_card(torch)
         serving = {"i1_native_io": native_io(torch, work, packed)}
         ntu, i2_logits = ntu_default_inputs(torch, tk, work, packed, runs,
                                             train)
@@ -4935,19 +5379,19 @@ def main():
              "--vid_len", "8", "32"],
             serving["i2_found_eval"]["model_acc"], want_logits=i2_logits,
             bf16=True)
-        torch.cuda.empty_cache()
+        free_card(torch)
         avmnist = avmnist_phase(torch, tk, work)
-        torch.cuda.empty_cache()
+        free_card(torch)
         mmimdb = mmimdb_phase(torch, tk, work)
-        torch.cuda.empty_cache()
+        free_card(torch)
         cifar = cifar_phase(torch, tk, work)
-        torch.cuda.empty_cache()
+        free_card(torch)
         tools = tools_phase(torch, tk, work, root, search)
-        torch.cuda.empty_cache()
+        free_card(torch)
         multi = multi_gpu_phase(torch, work, train)
-        torch.cuda.empty_cache()
+        free_card(torch)
         rest = ntu_rest_phase(torch, tk, work, packed, train)
-        torch.cuda.empty_cache()
+        free_card(torch)
         bench = bench_phase(kind, work, root)
     finally:
         shutil.rmtree(work, ignore_errors=True)

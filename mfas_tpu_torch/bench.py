@@ -43,12 +43,17 @@ their keys forward from the previous run's sidecar, only from the default
 sidecar and only when it was measured on a card of the same name;
 otherwise it records why each was skipped (``<first key>_skipped``).
 
-Timing: steps run eagerly, INNER (INNER_HEAD for head steps) chained steps
-per timed window, parameters, optimizer and BatchNorm state carried from
-step to step; each window ends in a device synchronize; median of 3 after
-1 warm-up. TF32 is off for matmul and cuDNN. The input kernels are built
-before the first section (``kernel_build_s``), and each section's kernel
-launches are recorded (``kernel_launches``).
+Timing: steps run through the entries the CLIs call, so on the card they
+are CUDA graph replays (the engine's ``train_step``/``eval_step``, the
+population trainer's ``streamed_features`` and the streamed population
+step), as the JAX bench times the jitted step; the FLOP count alone runs
+the eager step. INNER (INNER_HEAD for head steps) chained steps per timed
+window, parameters, optimizer and BatchNorm state carried from step to
+step; each window ends in a device synchronize; median of 3 after 1
+warm-up (the capture, on the card). TF32 is off for matmul and cuDNN. The
+input kernels are built before the first section (``kernel_build_s``), and
+each section's kernel launches are recorded (``kernel_launches``; a graph
+replay adds the launches it holds).
 
 From the command line the bench needs a CUDA device and exits non-zero
 without one; ``main(argv, device="cpu")`` runs it on the CPU at a tiny size.
@@ -59,6 +64,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
 import json
 import os
 import signal
@@ -286,6 +292,17 @@ def _timeit(fn, run, inner, warmup=1, iters=3):
     return float(np.median(times))
 
 
+def _release(engine):
+    """Free ``engine``'s CUDA graphs and their memory pool (the section's
+    engines share one net, and each graphed train step holds a pool the
+    size of its activations), and hand the cached blocks back."""
+    engine.release_graphs()
+    gc.collect()
+    if engine.device.type == "cuda":
+        import torch
+        torch.cuda.empty_cache()
+
+
 def _peak_tflops(device):
     if device.type != "cuda":
         return None
@@ -332,11 +349,11 @@ def bench_proxy(detail, run):
     from mfas_tpu_torch.fusion.ntu import (NTUFeatureExtractor,
                                            Searchable_Skeleton_Image_Net,
                                            tap_sizes)
-    from mfas_tpu_torch.core.optim import make_adam
     from mfas_tpu_torch.search.population import (PopulationSpec,
                                                   PopulationTrainer,
                                                   conf_tensors,
-                                                  init_population, train_step)
+                                                  init_population,
+                                                  streamed_steps)
 
     device = run.device
     B, IMG, K = PROXY_BATCH, PROXY_IMG, PROXY_K
@@ -373,11 +390,12 @@ def bench_proxy(detail, run):
     trainer = PopulationTrainer(spec, extractor, device=device)
     confs_K, conf1 = proxy_confs(K)
 
-    # ---- backbone feature pass, train mode (batch statistics, dropout)
+    # ---- backbone feature pass, train mode (batch statistics, dropout),
+    # the streamed search's entry (a CUDA graph replay on the card)
     def feats_loop(tr):
         def steps():
             for _ in range(inner):
-                tr._features((rgb, ske), train=True)
+                tr.streamed_features((rgb, ske))
         return steps
 
     t_backbone = _timeit(feats_loop(trainer), run, inner)
@@ -394,19 +412,20 @@ def bench_proxy(detail, run):
     fa, fb, lb, la = trainer._features((rgb, ske), train=True)
     head_batch = (fa, fb, lb, la, label, wmask)
 
-    # ---- head step, population of 1 (sequential unit) vs K: parameters,
-    # Adam state and BatchNorm state chain from step to step
+    # ---- head step, population of 1 (sequential unit) vs K, through the
+    # streamed search's per-batch step (a CUDA graph replay on the card):
+    # parameters, Adam state and BatchNorm state chain from step to step
     def pop_loop(confs):
         params, bn = init_population(confs, spec, seed=0, device=device)
-        opt = make_adam(params.values(), spec.weight_decay)
         conf = conf_tensors(confs, spec, device)
-        state = {"bn": bn}
+        prog = streamed_steps(spec, params, bn, conf, device=device,
+                              graphed=trainer.graphed)
+        prog.load(params, bn, conf)
 
         def steps():
             for _ in range(inner_head):
-                state["bn"], _, _ = train_step(spec, params, state["bn"], opt,
-                                               conf, head_batch, 1e-3,
-                                               trainer.generator)
+                prog.train_batch(head_batch[:4], label, wmask, 1e-3,
+                                 trainer.generator)
         return steps
 
     t_head_seq1 = _timeit(pop_loop(conf1), run, inner_head)
@@ -437,13 +456,14 @@ def bench_proxy(detail, run):
         def steps():
             model.train()
             for _ in range(inner):
-                engine._train_step(b, opt, 1e-3)
+                engine.train_step(b, opt, 1e-3)
         return steps
 
     engine = ClassifierEngine(model, device, multitask=True,
                               input_keys=("rgb", "ske"))
     opt = fresh(engine)
     t_full = _timeit(train_loop(engine, opt, batch), run, inner)
+    _release(engine)
 
     flops_step = None
     try:
@@ -480,25 +500,27 @@ def bench_proxy(detail, run):
             except torch.OutOfMemoryError as e:
                 sweep[str(bs)] = f"error: {type(e).__name__}"
             finally:
-                if run.on_card:
-                    torch.cuda.empty_cache()
+                _release(engine_bf16)
         if sweep:   # lean profile: keep the carried value
             detail["found_train_bf16_batch_sweep_clips_per_s"] = sweep
+        _release(engine_bf16)
         del opt_bf16
 
     # ---- inference, eval mode
     def infer_loop(engine):
         def steps():
             model.eval()
-            with torch.inference_mode():
-                for _ in range(inner):
-                    engine._forward(batch)
+            for _ in range(inner):
+                engine.eval_step(batch)
         return steps
 
     model.load_state_dict(init_state)
     t_infer = _timeit(infer_loop(engine), run, inner)
-    t_infer_bf16 = (_timeit(infer_loop(engine_bf16), run, inner)
-                    if with_bf16 else None)
+    _release(engine)
+    t_infer_bf16 = None
+    if with_bf16:
+        t_infer_bf16 = _timeit(infer_loop(engine_bf16), run, inner)
+        _release(engine_bf16)
 
     peak = _peak_tflops(device)
     detail.update({
@@ -926,7 +948,7 @@ def bench_e2e_input(detail, run, tmp_root):
             t0 = time.perf_counter()
             nb = 0
             for _, b in engine._prefetched(batches):
-                engine._train_step(b, opt, 1e-3)
+                engine.train_step(b, opt, 1e-3)
                 nb += 1
             run.sync()
             return time.perf_counter() - t0, nb
@@ -942,6 +964,7 @@ def bench_e2e_input(detail, run, tmp_root):
         epoch()                          # cold: page-in, allocator growth
         t1, nb = epoch()
         t2, _ = epoch()
+    _release(engine)
     detail["e2e_epoch_runs_s"] = [round(t1, 2), round(t2, 2)]
     t = min(t1, t2)
     detail["e2e_train_clips_per_s"] = round(nb * B / t, 2)
@@ -960,6 +983,7 @@ def bench_e2e_input(detail, run, tmp_root):
         res_epoch()                      # cold
         r1, rnb = res_epoch()
         r2, _ = res_epoch()
+    _release(res_engine)
     detail["e2e_train_clips_per_s_resident"] = round(
         rnb * B / min(r1, r2), 2)
 
@@ -976,6 +1000,7 @@ def bench_e2e_input(detail, run, tmp_root):
             bf16_epoch()                 # cold
             rb1, rnb = bf16_epoch()
             rb2, _ = bf16_epoch()
+        _release(bf16_engine)
         detail["e2e_train_clips_per_s_resident_bf16"] = round(
             rnb * B / min(rb1, rb2), 2)
     del res_store, res_loader
@@ -998,12 +1023,13 @@ def bench_e2e_input(detail, run, tmp_root):
             model.train()
             t0 = time.perf_counter()
             for _ in range(4):
-                engine._train_step(on_card_batch, opt, 1e-3)
+                engine.train_step(on_card_batch, opt, 1e-3)
             run.sync()
             return (time.perf_counter() - t0) / 4
 
         step_only()
         t_step = min(step_only(), step_only())
+    _release(engine)
     detail["e2e_breakdown_per_batch_s"] = {
         "host_produce_collate": round(t_host, 4),
         "device_step_resident": round(t_step, 4),

@@ -36,11 +36,15 @@ MOMENTS = ("exp_avg", "exp_avg_sq")
 def make_adam(params, weight_decay, capturable=False):
     """Adam over the parameters of ``params`` that require grad. The
     learning rate is set before every step (``set_lr``). ``capturable``
-    keeps the step counts and bias corrections on the parameters' device
-    (``adam_step_skip_zero_grads`` needs that on the card)."""
-    return torch.optim.Adam([p for p in params if p.requires_grad], lr=0.0,
-                            betas=BETAS, eps=EPS, weight_decay=weight_decay,
-                            capturable=capturable)
+    keeps the step counts, the bias corrections (in float32) and the
+    learning rate (a 0-d float32 tensor) on the parameters' device, so a
+    CUDA graph can capture the step and a replay reads the rate ``set_lr``
+    wrote (``adam_step_skip_zero_grads`` needs it on the card too)."""
+    params = [p for p in params if p.requires_grad]
+    lr = (torch.zeros((), device=params[0].device) if capturable and params
+          else 0.0)
+    return torch.optim.Adam(params, lr=lr, betas=BETAS, eps=EPS,
+                            weight_decay=weight_decay, capturable=capturable)
 
 
 def _copies(tensors):
@@ -90,10 +94,15 @@ def adam_step_skip_zero_grads(optimizer):
 
 def set_lr(optimizer, eta):
     """The scheduler's float64 eta, rounded to float32 as the JAX engine
-    feeds it to its step (``jnp.float32(eta)``)."""
+    feeds it to its step (``jnp.float32(eta)``); a device learning rate
+    (``make_adam(capturable=True)``) is filled in place, with no host
+    sync."""
     lr = float(np.float32(eta))
     for group in optimizer.param_groups:
-        group["lr"] = lr
+        if torch.is_tensor(group["lr"]):
+            group["lr"].fill_(lr)
+        else:
+            group["lr"] = lr
 
 
 def adam_init(params):

@@ -16,6 +16,15 @@ from the engine's generator, seeded at ``seed + epoch``; under a data
 ``group`` every rank seeds it alike, so DropPath's one draw per forward
 agrees across ranks (dropout masks are drawn at the global batch shape),
 and the zero-gradient skip sees the reduced gradient.
+
+On the card the steps are CUDA graphs, as ClassifierEngine's: the
+generator is registered with the train graph, so each replay draws
+DropPath's and dropout's numbers from the stream an eager step would, and
+the zero-gradient skip decides on the card inside the graph. Its host-side
+choices are fixed at capture: which parameters get a gradient (the same at
+every step: dead parameters never do) and which have optimizer state
+(every parameter with a gradient, after the warm-up, whose moves are
+undone to zeros, the state a first step starts from).
 """
 
 from __future__ import annotations
@@ -23,8 +32,8 @@ from __future__ import annotations
 import torch
 
 from mfas_tpu_torch.core import functional as F
-from mfas_tpu_torch.core.optim import adam_step_skip_zero_grads, make_adam
-from mfas_tpu_torch.engine.classifier import WEIGHT_DECAY, ClassifierEngine
+from mfas_tpu_torch.core.optim import adam_step_skip_zero_grads
+from mfas_tpu_torch.engine.classifier import ClassifierEngine
 
 
 class CifarEngine(ClassifierEngine):
@@ -34,10 +43,6 @@ class CifarEngine(ClassifierEngine):
         super().__init__(model, device, input_keys=("image",),
                          initial_best_acc=-1.0, group=group)
         self.use_intermediate = use_intermediate
-
-    def make_optimizer(self):
-        return make_adam(self.model.parameters(), WEIGHT_DECAY,
-                         capturable=self.device.type == "cuda")
 
     def _optimizer_step(self, optimizer):
         adam_step_skip_zero_grads(optimizer)

@@ -22,6 +22,25 @@ BatchNorms still update their running statistics, as the JAX engine folds
 the device until a phase ends. Batches are collated and copied to the device
 one batch ahead on a background thread (``prefetch_to_device``).
 
+CUDA graphs (the counterpart of the JAX engine's jitted ``_train_step`` and
+``_eval_step``): on a CUDA device with no data group and no ``remat``,
+``train_step`` and ``eval_step`` replay CUDA graphs (runtime/graphs.py::Step)
+of the eager step (``_train_step`` without the learning-rate write, and
+``_eval``), captured once per batch signature, ``batch_prep`` and its input
+kernels inside. Adam is then capturable with its learning rate on the card
+(``make_adam(capturable=True)``), which ``set_lr`` fills before each replay.
+The train graph is captured for one optimizer: another optimizer (each
+``train_track_acc`` call makes one) frees the engine's graphs first. A
+train graph and the eval graphs share one memory pool. Loaders pad every
+batch to full size, so a split needs one graph; the resident store's
+tensors pass through uncopied (RESIDENT_KEYS). Stays eager, by
+configuration: under a data group (NCCL capture at world > 1 cannot be
+checked on one card, and gloo cannot be captured) and under ``remat``
+(core/remat.py replays dropout generators with ``get_state``/``set_state``,
+which a capture forbids; the graph-safe states swap a generator's state
+object, and replaying a segment's draws inside one capture is not ported).
+On the CPU every step runs eagerly through the same functions.
+
 ``compute_dtype=torch.bfloat16`` runs forward and backward under
 ``torch.autocast`` with f32 parameters and Adam; inputs are cast like the
 JAX engine's ``cast_compute``, outputs go back to f32 before the loss, and
@@ -50,6 +69,7 @@ import contextlib
 import dataclasses
 import os
 import time
+import weakref
 
 import numpy as np
 import torch
@@ -59,6 +79,7 @@ from mfas_tpu_torch.core.layers import set_data_group, set_dropout_generator
 from mfas_tpu_torch.core.optim import make_adam, set_lr
 from mfas_tpu_torch.data.loader import prefetch_to_device, to_device
 from mfas_tpu_torch.parallel import mesh as pm
+from mfas_tpu_torch.runtime import graphs
 
 # the offset between a net's init seed and its dropout seed
 # (mfas_tpu/search/trainers.py::TRAIN_SEED_OFFSET), so the training stream
@@ -68,6 +89,9 @@ from mfas_tpu_torch.parallel import mesh as pm
 TRAIN_SEED_OFFSET = 1_000_003
 # the JAX engine's default coupled L2 weight decay (engine/classifier.py:90)
 WEIGHT_DECAY = 1e-4
+# batch entries that pass into a captured step uncopied: the resident
+# store riding in its batches (data/resident.py::ResidentLoader)
+RESIDENT_KEYS = ("_rgb_store", "_ske_store")
 
 
 def place_batch(batch, device, group=None):
@@ -149,6 +173,9 @@ class ClassifierEngine:
         if remat:
             from mfas_tpu_torch.core.remat import enable_remat
             enable_remat(model.remat_segments())
+        self.graphed = (self.device.type == "cuda" and group is None
+                        and not remat)
+        self._programs, self._graphs_for, self._pool = {}, None, None
         self.last_eval = None
         self.train_records = []
 
@@ -156,7 +183,10 @@ class ClassifierEngine:
     def _autocast(self):
         if self.compute_dtype is None:
             return contextlib.nullcontext()
-        return torch.autocast(self.device.type, dtype=self.compute_dtype)
+        # no weight-cast cache: a CUDA graph must not keep casts made
+        # outside it (the casts are the same either way)
+        return torch.autocast(self.device.type, dtype=self.compute_dtype,
+                              cache_enabled=False)
 
     def _forward(self, batch):
         """-> (loss, corrects, model output) for one placed batch."""
@@ -185,20 +215,86 @@ class ClassifierEngine:
         return loss, corrects, out
 
     def make_optimizer(self):
-        """A fresh Adam over the model's trainable parameters."""
-        return make_adam(self.model.parameters(), WEIGHT_DECAY)
+        """A fresh Adam over the model's trainable parameters, capturable
+        (a device learning rate) on the card."""
+        return make_adam(self.model.parameters(), WEIGHT_DECAY,
+                         capturable=self.device.type == "cuda")
 
     def _optimizer_step(self, optimizer):
         optimizer.step()
 
-    def _train_step(self, batch, optimizer, eta):
+    def _step(self, batch, optimizer):
+        """One train step at the learning rate already in ``optimizer``."""
         loss, corrects, _ = self._forward(batch)
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
         pm.all_reduce_grads(self.model.parameters(), self.group)
-        set_lr(optimizer, eta)
         self._optimizer_step(optimizer)
         return loss.detach(), corrects.detach()
+
+    def _train_step(self, batch, optimizer, eta):
+        """The eager train step: (loss, corrects) on the device."""
+        set_lr(optimizer, eta)
+        return self._step(batch, optimizer)
+
+    def _eval(self, batch):
+        """The eager eval step: (loss, corrects, fused logits)."""
+        loss, corrects, out = self._forward(batch)
+        return loss, corrects, (out[0] if isinstance(out, (tuple, list))
+                                else out)
+
+    def train_step(self, batch, optimizer, eta):
+        """One train step, (loss, corrects) on the device: a replay of
+        the captured step when ``self.graphed``, else ``_train_step``."""
+        if not self.graphed:
+            return self._train_step(batch, optimizer, eta)
+        set_lr(optimizer, eta)
+        return self._program("train", optimizer)(batch)
+
+    def eval_step(self, batch):
+        """One eval step under inference mode, (loss, corrects, fused
+        logits) on the device: a replay when ``self.graphed``."""
+        with torch.inference_mode():
+            if not self.graphed:
+                return self._eval(batch)
+            return self._program("eval")(batch)
+
+    def release_graphs(self):
+        """Free the captured steps (and the gradients a train graph
+        holds)."""
+        self._programs, self._graphs_for, self._pool = {}, None, None
+        for p in self.model.parameters():
+            p.grad = None
+
+    def _program(self, kind, optimizer=None):
+        """The engine's ``graphs.Step`` of ``kind`` ("train" for
+        ``optimizer``, or "eval"), built on first use."""
+        if kind == "train" and self._graphs_for is not optimizer:
+            self.release_graphs()
+            self._graphs_for = optimizer
+        prog = self._programs.get(kind)
+        if prog is None:
+            if self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+            model, name = self.model, f"{type(self).__name__}_{kind}"
+            # the graphs hold the engine weakly: an engine and its graphs
+            # (tens of GiB of pool on a full-width net) go when its last
+            # user drops it, not at the next garbage collection
+            engine = weakref.proxy(self)
+            if kind == "train":
+                def state():
+                    return [*model.parameters(), *model.buffers(),
+                            *(t for st in optimizer.state.values()
+                              for t in st.values() if torch.is_tensor(t))]
+                prog = graphs.Step(
+                    name, lambda b: engine._step(b, optimizer), state=state,
+                    generators=[self.generator], resident=RESIDENT_KEYS,
+                    pool=self._pool, exclusive=True)
+            else:
+                prog = graphs.Step(name, lambda b: engine._eval(b),
+                                   resident=RESIDENT_KEYS, pool=self._pool)
+            self._programs[kind] = prog
+        return prog
 
     def _prefetched(self, loader):
         """(n_valid, device batch) pairs, one batch ahead."""
@@ -223,6 +319,7 @@ class ClassifierEngine:
         epoch, and ``resume=True`` continues from it when the file exists.
         The call's TrainRecord is appended to ``self.train_records``."""
         model = self.model
+        self.release_graphs()
         set_trainable(model, trainable_prefixes)
         pm.replicate(model.state_dict().values(), self.group)
         optimizer = self.make_optimizer()
@@ -253,17 +350,15 @@ class ClassifierEngine:
                 model.train(train)
                 losses, n_valid, corrects = [], [], []
                 t0 = time.perf_counter()
-                with contextlib.nullcontext() if train else \
-                        torch.inference_mode():
-                    for n, batch in self._prefetched(dataloaders[phase]):
-                        if train:
-                            loss, c = self._train_step(batch, optimizer,
-                                                       scheduler.step())
-                        else:
-                            loss, c, _ = self._forward(batch)
-                        losses.append(loss)
-                        corrects.append(c)
-                        n_valid.append(n)
+                for n, batch in self._prefetched(dataloaders[phase]):
+                    if train:
+                        loss, c = self.train_step(batch, optimizer,
+                                                  scheduler.step())
+                    else:
+                        loss, c, _ = self.eval_step(batch)
+                    losses.append(loss)
+                    corrects.append(c)
+                    n_valid.append(n)
                 _sync(self.device)
                 if train:
                     record.train_seconds += time.perf_counter() - t0
@@ -304,13 +399,12 @@ class ClassifierEngine:
         self.model.eval()
         corrects, logits, masks = [], [], []
         t0 = time.perf_counter()
+        for _, batch in self._prefetched(dataloader):
+            _, c, fused = self.eval_step(batch)
+            corrects.append(c)
+            logits.append(fused)
+            masks.append(batch["_mask"])
         with torch.inference_mode():
-            for _, batch in self._prefetched(dataloader):
-                _, c, out = self._forward(batch)
-                corrects.append(c)
-                logits.append(out[0] if isinstance(out, (tuple, list))
-                              else out)
-                masks.append(batch["_mask"])
             total = (float(pm.reduce_sum(torch.stack(corrects).sum(),
                                          self.group)) if corrects else 0.0)
         seconds = time.perf_counter() - t0

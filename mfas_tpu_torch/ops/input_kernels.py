@@ -13,7 +13,8 @@ function (``u8_normalize_plain`` / ``u8_gather_normalize_plain``), which is
 also what the kernel is held against on the card.
 
 ``launch_counts`` counts kernel launches per wrapper, so a run can show that
-its main path went through the kernels.
+its main path went through the kernels; a CUDA graph that holds a launch
+adds it at every replay (runtime/graphs.py::count_replays).
 """
 
 from __future__ import annotations
@@ -29,11 +30,14 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from mfas_tpu_torch.runtime.graphs import count_replays
+
 _SRC = Path(__file__).resolve().parents[1] / "csrc" / "input_kernels.cu"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "mfas_tpu_torch"
 _OUT_DTYPES = (torch.float32, torch.bfloat16)
 
 launch_counts = {"u8_normalize": 0, "u8_gather_normalize": 0}
+count_replays(launch_counts)
 
 
 def reset_launch_counts():

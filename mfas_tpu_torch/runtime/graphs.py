@@ -1,15 +1,32 @@
-"""CUDA graphs of the search's programs: the port's counterpart of the JAX
+"""CUDA graphs of the port's jitted programs: the counterpart of the JAX
 package's jitted ``lax.scan`` programs (search/surrogate.py's fit and
-predict, search/population.py's fused bank epoch).
+predict, search/population.py's fused bank epoch) and of its per-batch
+jitted steps (engine/classifier.py's train and eval step,
+search/population.py's streamed ``features``/``train_step``/``eval_step``).
 
-``capture(name, fn, generators)`` warms ``fn`` up on a side stream, then
-records one call of it on that stream into a ``torch.cuda.CUDAGraph``. The
-tensors ``fn`` reads are its static inputs: the caller fills them with
-``copy_`` before a replay and reads what ``fn`` wrote after it. ``fn``'s return value lives in
-the graph's memory pool and each replay rewrites it. A generator ``fn``
-draws from is registered with the graph, so every replay draws the numbers
-an eager call from the generator's state would. The warm-up calls change
-what ``fn`` writes, so the caller loads its state after the capture.
+``capture(name, fn, generators, pool)`` warms ``fn`` up on a side stream,
+then records one call of it on that stream into a ``torch.cuda.CUDAGraph``
+(in the memory pool ``pool`` when given, so several graphs can share one).
+The tensors ``fn`` reads are its static inputs: the caller fills them with
+``copy_`` before a replay and reads what ``fn`` wrote after it. ``fn``'s
+return value lives in the graph's memory pool and each replay rewrites it. A
+generator ``fn`` draws from is registered with the graph, so every replay
+draws the numbers an eager call from the generator's state would. The
+warm-up calls change what ``fn`` writes, so the caller loads its state after
+the capture (or lets ``Step`` put it back).
+
+``Step(name, fn, ...)``: a per-batch step captured once per signature of
+its batch (a dict of tensors: shapes, dtypes, and the address of each
+resident tensor) and replayed after that. It owns the static inputs and
+fills them with ``copy_`` before each replay; resident tensors (a store
+already on the card at a stable address, which rides in every batch) pass
+through uncopied; the outputs are cloned, since the next replay overwrites
+them; the warm-up's moves of the step's state (parameters, buffers,
+optimizer state, generators) are undone into the same tensors.
+
+Counters: a dict registered with ``count_replays`` (the input kernels'
+``launch_counts``) counts what a call does. A replay adds what the captured
+call added to it; the warm-up calls, whose effects are undone, add nothing.
 
 A failed capture or replay raises; nothing here falls back to eager calls.
 
@@ -26,6 +43,8 @@ WARMUP_CALLS = 2
 
 GRAPH_COUNTS: dict = {}
 
+_REPLAY_COUNTERS: list = []
+
 
 def reset_graph_counts():
     GRAPH_COUNTS.clear()
@@ -36,30 +55,146 @@ def _count(name, what):
     counts[what] += 1
 
 
+def count_replays(counter):
+    """Register ``counter`` (a dict of numbers that calls advance): every
+    graph captured after this adds, per replay, what its captured call
+    added to it."""
+    if not any(c is counter for c in _REPLAY_COUNTERS):
+        _REPLAY_COUNTERS.append(counter)
+
+
+def uncount_replays(counter):
+    _REPLAY_COUNTERS[:] = [c for c in _REPLAY_COUNTERS if c is not counter]
+
+
+def _restore(counter, values):
+    counter.clear()
+    counter.update(values)
+
+
 class Graph:
     """One captured call: ``replay()`` reruns it, ``out`` is what it
     returned."""
 
-    def __init__(self, name, graph, out):
+    def __init__(self, name, graph, out, added=()):
         self.name, self._graph, self.out = name, graph, out
+        self._added = added
 
     def replay(self):
         self._graph.replay()
+        for counter, delta in self._added:
+            for k, d in delta.items():
+                counter[k] = counter.get(k, 0) + d
         _count(self.name, "replays")
 
 
-def capture(name, fn, generators=()):
-    """``fn()`` warmed up and captured (see the module docstring)."""
+def _record(fn, generators, pool, mark):
+    """``fn()`` warmed up on a side stream, ``mark()``, then one call of
+    it recorded on that stream: (the CUDA graph, what the call returned).
+    Other threads may use the card meanwhile (the loaders' copies run on a
+    prefetch thread), so only this thread's calls are checked during the
+    capture."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for _ in range(WARMUP_CALLS):
             fn()
     torch.cuda.current_stream().wait_stream(side)
+    # the warm-up's cached blocks go back to the card before the graph's
+    # pool grows: a full-width step holds tens of GiB of them
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     graph = torch.cuda.CUDAGraph()
     for gen in generators:
         graph.register_generator_state(gen)
-    with torch.cuda.graph(graph, stream=side):
+    mark()
+    with torch.cuda.graph(graph, pool=pool, stream=side,
+                          capture_error_mode="thread_local"):
         out = fn()
+    return graph, out
+
+
+def capture(name, fn, generators=(), pool=None):
+    """``fn()`` warmed up and captured (see the module docstring)."""
+    counters = list(_REPLAY_COUNTERS)
+    before = [dict(c) for c in counters]
+    at_capture = []
+    graph, out = _record(fn, generators, pool, lambda: at_capture.extend(
+        dict(c) for c in counters))
+    added = []
+    for counter, start, old in zip(counters, at_capture, before):
+        delta = {k: v - start.get(k, 0) for k, v in counter.items()
+                 if v != start.get(k, 0)}
+        if delta:
+            added.append((counter, delta))
+        _restore(counter, old)
     _count(name, "captures")
-    return Graph(name, graph, out)
+    return Graph(name, graph, out, tuple(added))
+
+
+def _signature(batch, resident):
+    return tuple(
+        (k, tuple(v.shape), v.dtype, v.stride(),
+         v.data_ptr() if k in resident else None)
+        for k, v in sorted(batch.items()))
+
+
+class Step:
+    """``fn(batch) -> tuple of tensors``, captured once per signature of
+    ``batch`` and replayed (module docstring).
+
+    state: a callable returning the tensors a call of ``fn`` moves; the
+    warm-up's moves are copied back into them after the capture, and a
+    tensor the warm-up created (torch's optimizers create their state, as
+    zeros, at the first step) is zeroed. generators: drawn from by ``fn``,
+    registered with each graph, their states put back after the capture.
+    resident: batch keys passed through uncopied. pool: the memory pool the
+    graphs share (``torch.cuda.graph_pool_handle()``), or None for one of
+    their own. exclusive: keep only the latest signature's graph (a train
+    step's gradients live at one address per parameter, which the next
+    capture frees and reuses)."""
+
+    def __init__(self, name, fn, *, state=tuple, generators=(),
+                 resident=(), pool=None, exclusive=False):
+        self.name, self.fn = name, fn
+        self.state, self.generators = state, tuple(generators)
+        self.resident, self.pool = frozenset(resident), pool
+        self.exclusive = exclusive
+        self._graphs = {}
+
+    def __call__(self, batch):
+        key = _signature(batch, self.resident)
+        entry = self._graphs.get(key)
+        if entry is None:
+            if self.exclusive:
+                self._graphs.clear()
+            entry = self._graphs[key] = self._capture(batch)
+        static, graph = entry
+        with torch.no_grad():
+            for k, buf in static.items():
+                buf.copy_(batch[k])
+        graph.replay()
+        return tuple(t.clone() for t in graph.out)
+
+    def _capture(self, batch):
+        static = {k: torch.empty_like(v) for k, v in batch.items()
+                  if k not in self.resident}
+        bound = {k: static.get(k, v) for k, v in batch.items()}
+        with torch.no_grad():
+            for k, buf in static.items():
+                buf.copy_(batch[k])
+            saved = [(t, t.clone()) for t in self.state()]
+        gen_states = [g.get_state() for g in self.generators]
+        fn = self.fn
+        graph = capture(self.name, lambda: tuple(fn(bound)),
+                        self.generators, self.pool)
+        with torch.no_grad():
+            kept = {id(t) for t, _ in saved}
+            for t, v in saved:
+                t.copy_(v)
+            for t in self.state():
+                if id(t) not in kept:
+                    t.zero_()
+        for g, s in zip(self.generators, gen_states):
+            g.set_state(s)
+        return static, graph

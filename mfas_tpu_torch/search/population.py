@@ -5,8 +5,9 @@ During the search only the fusion heads train; both backbones are frozen,
 so each batch's backbone features are computed once and shared by every
 candidate of the population. Candidates are independent: the forward is
 batched over a leading population axis P by hand (``torch.bmm`` against
-stacked per-candidate weights), and one backward plus one ``torch.optim.Adam``
-step over the stacked parameters trains the whole population.
+stacked per-candidate weights), and one backward plus one Adam step
+(``core/optim.py::adam_update``) over the stacked parameters trains the
+whole population.
 
 Heterogeneous fusion shapes are handled by padding, as in the JAX package:
 every tap is zero-padded to the widest tap of its modality, every row's
@@ -32,11 +33,23 @@ path. On a CUDA device its train steps and its dev steps are CUDA graphs
 (runtime/graphs.py), captured once per shape in a process-wide cache
 (``fused_epochs``) and replayed: one replay per epoch and phase when an
 epoch has at most MAX_GRAPH_STEPS steps. On the CPU the same step functions
-run eagerly. The per-step loop of ``train_step`` (torch's Adam) stays,
-chosen by configuration: under a data or pop group (NCCL capture at world >
-1 cannot be checked on one card, and gloo cannot be captured), with
-``fused_epochs=False`` (``--no_fused_epochs``), and on the bankless
-streamed path, whose backbone passes run per batch as in the JAX package.
+run eagerly.
+
+The streamed path (no bank, no data or pop group): each train batch's
+backbone features and the population's ``train_step`` run once per batch,
+as the JAX package's jitted ``features`` and ``train_step`` do, and each
+dev batch's ``eval_step`` over the per-batch dev cache. On a CUDA device
+each of the three is a CUDA graph replayed per batch: the train-mode
+features (K1 inside) captured per input shape on the trainer
+(``streamed_features``), the two steps over static copies of the
+population, its Adam state and its learning rate in a process-wide cache
+by shape (``streamed_steps``), so a fresh population is copied in, not
+captured again. On the CPU the same functions run eagerly. Every Adam
+here is the JAX package's ``adam_update``, so the per-batch, streamed and
+fused paths step alike. The per-step loop stays eager, chosen by
+configuration: under a data or pop group (NCCL capture at world > 1 cannot
+be checked on one card, and gloo cannot be captured) and with
+``fused_epochs=False`` (``--no_fused_epochs``) on a bank.
 
 Several processes (parallel/mesh.py) lay out as a (pop, data) grid. The
 ``data`` group splits every batch by rows: each rank extracts features of
@@ -61,6 +74,7 @@ import contextlib
 import copy
 import itertools
 import math
+import weakref
 from dataclasses import astuple, dataclass
 
 import numpy as np
@@ -70,8 +84,7 @@ import torch.nn.functional as TF
 from mfas_tpu_torch.core import functional as F
 from mfas_tpu_torch.core.layers import (_BatchNorm, set_data_group,
                                         set_dropout_generator)
-from mfas_tpu_torch.core.optim import (adam_init, adam_update, make_adam,
-                                       set_lr)
+from mfas_tpu_torch.core.optim import adam_init, adam_update
 from mfas_tpu_torch.data.loader import prefetch_to_device, to_device
 from mfas_tpu_torch.fusion.layers import shared_weight_key
 from mfas_tpu_torch.parallel import mesh as pm
@@ -422,20 +435,26 @@ def population_losses(spec, params, bn_state, conf, batch, train,
     return loss, corrects, new_bn
 
 
-def train_step(spec, params, bn_state, optimizer, conf, batch, lr,
+def train_step(spec, params, bn_state, adam, conf, batch, lr,
                generator=None, group=None, shards=()):
     """One step of the whole population: the loss summed over candidates,
-    one backward, one Adam step over the stacked parameters (each
-    candidate's gradient SUMmed over the data ``group`` first). Returns
-    (new bn_state, loss (P,), corrects (P,)), all on the device."""
+    one backward (each candidate's gradient SUMmed over the data ``group``),
+    and the JAX package's Adam over the stacked parameters
+    (``core/optim.py::adam_update`` on ``adam``, an ``adam_init`` state)
+    at ``lr``: a float, rounded to float32 as the JAX step takes it, or a
+    0-d tensor on the device. Returns (new bn_state, loss (P,), corrects
+    (P,)), all on the device."""
     loss, corrects, new_bn = population_losses(spec, params, bn_state, conf,
                                                batch, True, generator, group,
                                                shards)
-    optimizer.zero_grad(set_to_none=True)
+    plist = list(params.values())
+    for p in plist:
+        p.grad = None
     loss.sum().backward()
-    pm.all_reduce_grads(params.values(), group)
-    set_lr(optimizer, lr)
-    optimizer.step()
+    pm.all_reduce_grads(plist, group)
+    if not torch.is_tensor(lr):
+        lr = float(np.float32(lr))
+    adam_update(plist, [p.grad for p in plist], adam, lr, spec.weight_decay)
     return new_bn, loss.detach(), corrects.detach()
 
 
@@ -644,6 +663,135 @@ def fused_epochs(spec, params, bn_state, conf, bank, dev_bank, batch_size,
     return prog
 
 
+# a population batch's entries, in population_losses' order
+_BATCH_KEYS = ("fa", "fb", "lb", "la", "label", "wmask")
+
+
+class _StreamedSteps:
+    """The streamed per-batch steps of one population shape (spec, P): the
+    JAX package's jitted ``train_step`` and ``eval_step`` driven once per
+    batch (``_PopulationPrograms``' bankless path). A static state ``st``
+    (the population's parameters, BatchNorm state, Adam state and conf, the
+    learning rate, the train and dev correct counts) and a generator of its
+    own. ``graphed``: each step a CUDA graph (runtime/graphs.py::Step, one
+    per batch shape, both in one memory pool), its batch (fa, fb, lb, la,
+    label, wmask) copied into static inputs; otherwise each step runs
+    eagerly (the plain version: the CPU's, and the card's reference in
+    chip_smoke.py)."""
+
+    def __init__(self, spec, params, bn_state, conf, *, device, graphed):
+        def zeros(t):
+            return torch.zeros(t.shape, dtype=t.dtype, device=device)
+
+        P = conf["sel_a"].shape[0]
+        st = {"params": {k: zeros(v).requires_grad_()
+                         for k, v in params.items()},
+              "bn": {k: zeros(v) for k, v in bn_state.items()},
+              "conf": {k: zeros(v) for k, v in conf.items()},
+              "lr": torch.zeros((), device=device),
+              "corr": torch.zeros((P,), device=device),
+              "dev_corr": torch.zeros((P,), device=device)}
+        st["adam"] = adam_init(list(st["params"].values()))
+        self.spec, self.st = spec, st
+        self.generator = torch.Generator(device=device)
+        if graphed:
+            pool = torch.cuda.graph_pool_handle()
+            self._train = graphs.Step(
+                "population_train_step", self._train_fn, state=self._moved,
+                generators=[self.generator], pool=pool, exclusive=True)
+            self._eval = graphs.Step(
+                "population_eval_step", self._eval_fn,
+                state=lambda: [st["dev_corr"]], pool=pool)
+        else:
+            self._train, self._eval = self._train_fn, self._eval_fn
+
+    def _moved(self):
+        st = self.st
+        return [*st["params"].values(), *st["bn"].values(), *st["adam"]["m"],
+                *st["adam"]["v"], st["adam"]["step"], st["corr"]]
+
+    @staticmethod
+    def _batch(b):
+        return tuple(b[k] for k in _BATCH_KEYS)
+
+    def _train_fn(self, b):
+        st = self.st
+        new_bn, _, corrects = train_step(
+            self.spec, st["params"], st["bn"], st["adam"], st["conf"],
+            self._batch(b), st["lr"], self.generator)
+        with torch.no_grad():
+            if self.spec.batchnorm:
+                for k, v in new_bn.items():
+                    st["bn"][k].copy_(v)
+            st["corr"].add_(corrects)
+        return ()
+
+    def _eval_fn(self, b):
+        st = self.st
+        _, corrects = eval_step(self.spec, st["params"], st["bn"],
+                                st["conf"], self._batch(b))
+        with torch.no_grad():
+            st["dev_corr"].add_(corrects)
+        return ()
+
+    def load(self, params, bn_state, conf):
+        """A new population into the static state: its parameters,
+        BatchNorm state and conf copied in, Adam's moments and step and the
+        correct counts zeroed."""
+        st = self.st
+        with torch.no_grad():
+            for name, src in (("params", params), ("bn", bn_state),
+                              ("conf", conf)):
+                for k, v in src.items():
+                    st[name][k].copy_(v)
+            for t in (*st["adam"]["m"], *st["adam"]["v"], st["adam"]["step"],
+                      st["corr"], st["dev_corr"]):
+                t.zero_()
+
+    def train_batch(self, feats, label, wmask, lr, generator):
+        """One train step on the features ``feats`` (fa, fb, lb, la) at the
+        scheduler's ``lr``, dropout drawn from ``generator``'s stream (its
+        state moves on as an eager step would move it); the correct counts
+        add to ``st["corr"]``."""
+        self.st["lr"].fill_(float(np.float32(lr)))
+        self.generator.set_state(generator.get_state())
+        self._train(dict(zip(_BATCH_KEYS, (*feats, label, wmask))))
+        generator.set_state(self.generator.get_state())
+
+    def eval_batch(self, batch):
+        """One dev step on a cached (fa, fb, lb, la, label, wmask) batch;
+        the correct counts add to ``st["dev_corr"]``."""
+        self._eval(dict(zip(_BATCH_KEYS, batch)))
+
+    def counts(self, which):
+        """A copy of the correct counts (P,) of "corr" or "dev_corr",
+        zeroed for the next phase."""
+        c = self.st[which].clone()
+        self.st[which].zero_()
+        return c
+
+    def state(self):
+        """Copies of the population's (params, bn_state)."""
+        return ({k: v.detach().clone() for k, v in self.st["params"].items()},
+                {k: v.clone() for k, v in self.st["bn"].items()})
+
+
+_STREAMED_CACHE: dict = {}
+
+
+def streamed_steps(spec, params, bn_state, conf, *, device, graphed):
+    """The process-wide ``_StreamedSteps`` of this population shape, built
+    on first use (``graphed`` on a CUDA device, eager on the CPU)."""
+    device = torch.device(device)
+    key = (astuple(spec), tuple((k, tuple(v.shape)) for k, v in
+                                params.items()), str(device), graphed)
+    prog = _STREAMED_CACHE.get(key)
+    if prog is None:
+        prog = _STREAMED_CACHE[key] = _StreamedSteps(
+            spec, params, bn_state, conf, device=device, graphed=graphed)
+    return prog
+
+
 # --------------------------------------------------------------------------
 # trainer
 # --------------------------------------------------------------------------
@@ -716,6 +864,9 @@ class PopulationTrainer:
         self._train_bank = self._train_bank_key = None
         self._dev_bank = self._dev_bank_key = None
         self._token = next(_cache_token_counter)
+        self.graphed = (self.device.type == "cuda" and group is None
+                        and pop_group is None)
+        self._train_features = None
 
     def _section(self, name):
         return (self.timer.section(name) if self.timer is not None
@@ -968,13 +1119,30 @@ class PopulationTrainer:
                                                     shuffle_rs)):
             yield self._bank_batch(bank, take, wm)
 
-    def _step(self, params, bn_state, opt, conf, batch, eta, batch_size,
+    def _step(self, params, bn_state, adam, conf, batch, eta, batch_size,
               pop_split):
         with self._section("population steps"):
-            return train_step(self.spec, params, bn_state, opt, conf, batch,
+            return train_step(self.spec, params, bn_state, adam, conf, batch,
                               eta, self.generator,
                               self._batch_group(batch_size),
                               self._shards(batch_size, pop_split))
+
+    def streamed_features(self, inputs):
+        """The train-mode features of one placed batch: when
+        ``self.graphed`` a replay of ``_features(inputs, True)`` captured
+        once per input shape (the extractor and the generator are this
+        trainer's; the graph holds the trainer weakly, so both go with its
+        last user)."""
+        if not self.graphed:
+            return self._features(inputs, True)
+        if self._train_features is None:
+            trainer = weakref.proxy(self)
+            self._train_features = graphs.Step(
+                "population_features",
+                lambda b: trainer._features(
+                    tuple(b[k] for k in sorted(b)), True),
+                generators=[self.generator])
+        return self._train_features({str(i): x for i, x in enumerate(inputs)})
 
     def _eval(self, params, bn_state, conf, batch):
         with self._section("population steps"):
@@ -1007,7 +1175,7 @@ class PopulationTrainer:
             bn_state = {k: v[mine].clone() for k, v in bn_state.items()}
         conf = conf_tensors(confs[mine] if pop_split else confs, spec,
                             self.device)
-        opt = make_adam(params.values(), spec.weight_decay)
+        adam = adam_init(list(params.values()))
         self.generator.manual_seed(seed + 1)
 
         bank = None
@@ -1070,7 +1238,7 @@ class PopulationTrainer:
                 tr = []
                 for take_s, wm_s, eta in zip(take, wm, etas):
                     bn_state, _, corr = self._step(
-                        params, bn_state, opt, conf,
+                        params, bn_state, adam, conf,
                         self._bank_batch(bank, take_s, wm_s), eta, bs,
                         pop_split)
                     tr.append(corr)
@@ -1079,6 +1247,31 @@ class PopulationTrainer:
                        for t, w in zip(*dev_plan)]
                 record("train", tr, bs)
                 best = np.maximum(best, record("dev", dev, dev_bs))
+        elif bank is None and self.group is None and self.pop_group is None:
+            # the streamed per-batch programs (graphed on the card)
+            prog = streamed_steps(spec, params, bn_state, conf,
+                                  device=self.device, graphed=self.graphed)
+            prog.load(params, bn_state, conf)
+            for epoch in range(num_epochs):
+                n = 0
+                for inputs, label, wmask in self._placed_batches(
+                        dataloaders["train"], input_keys, label_key):
+                    with self._section("features"):
+                        feats = self.streamed_features(inputs)
+                    with self._section("population steps"):
+                        prog.train_batch(feats, label, wmask,
+                                         scheduler.step(), self.generator)
+                    n += 1
+                record("train", [prog.counts("corr")] if n else [], bs)
+                n = 0
+                for batch in self._dev_batches(dataloaders["dev"],
+                                               input_keys, label_key):
+                    with self._section("population steps"):
+                        prog.eval_batch(batch)
+                    n += 1
+                best = np.maximum(best, record(
+                    "dev", [prog.counts("dev_corr")] if n else [], dev_bs))
+            params, bn_state = prog.state()
         else:
             set_data_group(self.extractor, self._batch_group(bs))
             for epoch in range(num_epochs):
@@ -1087,7 +1280,7 @@ class PopulationTrainer:
                     if phase == "train" and bank is not None:
                         for batch in self._bank_batches(bank, bs, bank_rs):
                             bn_state, _, corr = self._step(
-                                params, bn_state, opt, conf, batch,
+                                params, bn_state, adam, conf, batch,
                                 scheduler.step(), bs, pop_split)
                             terms.append(corr)
                     elif phase == "train":
@@ -1096,7 +1289,7 @@ class PopulationTrainer:
                             with self._section("features"):
                                 feats = self._features(inputs, True)
                             bn_state, _, corr = self._step(
-                                params, bn_state, opt, conf,
+                                params, bn_state, adam, conf,
                                 (*feats, label, wmask), scheduler.step(),
                                 bs, pop_split)
                             terms.append(corr)

@@ -13,14 +13,19 @@ batchnorm, --drpt 0.4) on an f32 RGB clip (B, 8, img, img, 3), a skeleton
 under the engine's --bf16 path. ``visual_fwd`` is the eval forward of the
 RGB backbone (models/ntu.py::Visual), with bf16 weights under --bf16.
 
-WARMUP iterations run first; then INNER iterations run eagerly inside one
+WARMUP iterations run first; then INNER iterations run inside one
 torch.profiler session with the card's activity (the JAX tool scans INNER
-iterations in one compiled program). Printed: wall ms/iter; device-busy
-ms/iter, the union of the kernels' intervals, so wall minus busy is host
-dispatch; self device time per framework (aten) op from ``key_averages()``,
-the counterpart of the JAX tool's HLO ``op_name`` attribution; device time
-by kernel class (runtime/profiler.py::KERNEL_CLASSES); the top kernels; and
-whether TF32 is on for matmul and for cuDNN. The tool leaves torch's TF32
+iterations in one compiled program). The train step is the engine's
+``train_step``, as the CLIs run it: on the card a replay of the CUDA graph
+the first warm-up iteration captured (engine/classifier.py). Printed: wall
+ms/iter; device-busy ms/iter, the union of the kernels' intervals, so wall
+minus busy is host dispatch; self device time per framework (aten) op from
+``key_averages()``, the counterpart of the JAX tool's HLO ``op_name``
+attribution (a graph's kernels run with no aten op on the host, so for a
+replayed step it lists only the ops outside the graph: the batch copied
+into the graph's inputs, the outputs' clones); device time by kernel class
+(runtime/profiler.py::KERNEL_CLASSES); the top kernels; and whether TF32 is
+on for matmul and for cuDNN. The tool leaves torch's TF32
 settings as it finds them, as the port's CLIs do, and says which it ran.
 
 From the command line it runs on CUDA and fails without it; ``main(argv,
@@ -105,7 +110,7 @@ def build(what, B, img, bf16, device, arch=None, channels_last=False):
     batch = {k: v.to(device) for k, v in batch.items()}
 
     def train_step():
-        loss, _ = engine._train_step(batch, opt, 1e-3)
+        loss, _ = engine.train_step(batch, opt, 1e-3)
         return loss
 
     return train_step

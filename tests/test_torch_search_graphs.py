@@ -14,8 +14,8 @@ versions of its CUDA graphs):
   1e-9, the correct counts equal;
 * with dropout, the fused epoch draws the per-step loop's masks from the
   trainer's generator and leaves it in the same state; the per-step loop
-  steps torch's Adam, so in float64 at small learning rates the parameters
-  and BatchNorm state agree within 1e-9;
+  steps the same ``adam_update``, so in float64 at small learning rates the
+  parameters and BatchNorm state agree within 1e-9;
 * a cached program reloaded with a second population starts that
   population afresh (zeroed Adam state), bitwise a new program's;
 * a --cache_features --batchnorm search interrupted after its first step
@@ -36,7 +36,7 @@ from mfas_tpu.core import flatten_tree
 from mfas_tpu.search import population as jpop
 from mfas_tpu.search.surrogate import SimpleRecurrentSurrogate as JSurrogate
 from mfas_tpu_torch import main_searchable_ntu as tmain
-from mfas_tpu_torch.core.optim import make_adam
+from mfas_tpu_torch.core.optim import adam_init
 from mfas_tpu_torch.search import population as tpop
 from mfas_tpu_torch.search import searcher as tsearcher
 from mfas_tpu_torch.search import surrogate as tsur
@@ -291,10 +291,10 @@ def _numpy_tree(tree):
 
 
 def test_fused_epoch_draws_the_per_step_loops_dropout():
-    """Float64 at learning rates near 1e-5: the two Adams differ only in
-    float32 against float64 bias corrections (~1e-5 relative of a step, so
-    ~1e-10 here), while one dropout mask drawn differently would move a
-    parameter by ~lr."""
+    """Float64 at learning rates near 1e-5: both paths step
+    ``adam_update`` (the per-step loop at the float32-rounded rate, the
+    epoch at its float32 plan), while one dropout mask drawn differently
+    would move a parameter by ~lr."""
     spec = tpop.PopulationSpec(**SIZES, batchnorm=True, use_alphas=True,
                                drpt=0.5)
     rs = np.random.RandomState(12)
@@ -316,11 +316,11 @@ def test_fused_epoch_draws_the_per_step_loops_dropout():
 
     trainer = tpop.PopulationTrainer(spec, torch.nn.Sequential(),
                                      device="cpu")
-    opt = make_adam(params.values(), spec.weight_decay)
+    adam = adam_init(list(params.values()))
     g_loop = torch.Generator().manual_seed(5)
     terms = []
     for take_s, wm_s, eta in zip(take, wm, etas):
-        bn, _, c = tpop.train_step(spec, params, bn, opt, conf,
+        bn, _, c = tpop.train_step(spec, params, bn, adam, conf,
                                    trainer._bank_batch(bank, take_s, wm_s),
                                    float(eta), g_loop)
         terms.append(c)

@@ -35,7 +35,7 @@ from mfas_tpu.data import ntu_pack as jpack
 from mfas_tpu.fusion import ntu as jfntu
 from mfas_tpu.search import population as jpop
 from mfas_tpu_torch import main_searchable_ntu as tmain
-from mfas_tpu_torch.core.optim import make_adam
+from mfas_tpu_torch.core.optim import adam_init
 from mfas_tpu_torch.core.sched import LRCosineAnnealingScheduler as TSched
 from mfas_tpu_torch.data import loader as tloader
 from mfas_tpu_torch.data import ntu as tntu
@@ -221,9 +221,9 @@ def test_population_adam_step_f64_matches_jax():
     params = {k: v.detach().double().requires_grad_(True)
               for k, v in params.items()}
     bn = {k: v.double() for k, v in bn.items()}
-    opt = make_adam(params.values(), spec_t.weight_decay)
+    adam = adam_init(list(params.values()))
     tb = tuple(torch.from_numpy(x) for x in batch)
-    bn2, losst, corrt = tpop.train_step(spec_t, params, bn, opt,
+    bn2, losst, corrt = tpop.train_step(spec_t, params, bn, adam,
                                         tpop.conf_tensors(CONFS, spec_t,
                                                           "cpu"), tb, lr)
     np.testing.assert_allclose(losst.numpy(), np.asarray(lossj), rtol=1e-12)
