@@ -45,14 +45,16 @@
    once per train, dev and test batch (bf16 output in (c)), from the
    engine's CUDA graphs: one train graph per phase and one eval graph per
    phase's dev split (and the resident test split's), replayed once per
-   batch, none under --remat (eager by configuration); train clips/s and
-   peak allocated memory are printed per phase;
+   batch, --remat included (its segments' recomputation in the train
+   graph); train clips/s and peak allocated memory are printed per phase;
 8. steady-state train steps at full width, B=20, on the resident path:
-   f32, bf16 and remat, phase 1 and phase 2, eager and then graphed in one
-   call (median of 5 after 2, peak allocated and reserved memory, then 3
-   steps each under torch.profiler: device time per step by kernel class
+   f32 phase 1 and phase 2, bf16 and remat phase 2, eager and graphed in one
+   call (median of 5 after 2, remat 3 after 1, peak allocated and reserved
+   memory, then 2 steps each under torch.profiler: device time per step by kernel class
    (convolution forward/dgrad/wgrad, elementwise, reductions, Adam, the
-   input kernel, ...), busy share, kernels per step; remat eager only);
+   input kernel, ...), busy share, kernels per step; K2 counted once per
+   eager step and per replay; the graphed remat step's allocated peak,
+   capture included, at most REMAT_PEAK_GIB);
    each graphed step then held to the eager one from the same state over
    two train steps and an eval step under cuDNN's deterministic algorithms
    (parameters, buffers, Adam state, losses, corrects, logits, generator):
@@ -76,12 +78,17 @@
    the bank runs (s2), (s4) replay the fused-epoch graphs once per epoch
    and phase; the streamed (s1) replays its features and train step once
    per train batch and its eval step once per dev batch; (s3)'s candidates
-   replay the engine's) (search_phase); the card's busy share over (s1)'s
+   replay the engine's) (search_phase); (s6) --cache_features --batchnorm
+   --no_fused_epochs cut to one iteration of two steps, graphed and eager
+   in one call: every accuracy and final parameter bitwise, one train and
+   eval replay per batch (bank_per_step_search); the card's busy share
+   over (s1)'s
    first two steps, from a trace (search_busy_share); then warm population
    train/eval steps and surrogate fit steps, timed and profiled apart,
    each both graphed and eager: the streamed per-batch steps eager and
    graphed (P=32, P=15) and held to each other (streamed_vs_eager), the
-   graphed bank epoch, the eager fit epochs against the graphed fit, the
+   graphed bank epoch, the bank's per-step train step (a gathered batch,
+   then the step) eager and graphed, the eager fit epochs against the graphed fit, the
    streamed train-mode features at full width eager and graphed, held
    alike, one K1 launch per replay (search_step_times); (g) the graphs
    against eager calls of the same step functions (graphs_phase): (g1) a
@@ -120,8 +127,15 @@
    losses, dev F1 above the all-genres F1), whose --test_cp must print the
    same Model F1; (m2) --central_only, the non-central parameters as built
    and some central one moved;
-   (m3) warm whole-net and central steps timed and profiled, and the
-   loader's batch apart; (m4) the other four --model nets for one epoch;
+   each run's engine replays its graphs (one train graph replayed per
+   batch, one eval graph per split shape replayed per dev and test batch);
+   (m3) warm whole-net and central steps eager and graphed in one call,
+   timed and profiled, each graphed step held to the eager one under
+   cuDNN's deterministic algorithms, and the loader's batch apart; (m6)
+   the engine over a padded-sequence net (SimpleRecurrentModel and the
+   poster) with text lengths 8 and 16 alternating: two train graphs alive
+   on one set of gradients, the dead head without one, held to eager;
+   (m4) the other four --model nets for one epoch;
    (m5) taps and heads card against CPU in f32 (1e-4 of max), a whole-net
    step in f64 (1e-3 of max; a gradient that vanishes on the CPU is named
    and must stay below 1e-12 of the largest on the card),
@@ -781,7 +795,7 @@ def paired_train_steps(torch, work, name, engine, model, prefixes, batch,
                 peak_warm = torch.cuda.max_memory_allocated()
                 torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
-            loss, _ = engine.train_step(batch, opt, eta)
+            loss = engine.train_step(batch, opt, eta)[0]
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
             check(np.isfinite(float(loss)), f"{name} {mode}: loss {loss}")
@@ -841,15 +855,17 @@ def held_to_eager(torch, name, runs):
     return r
 
 
-def graphed_vs_eager(torch, name, engine, model, prefixes, batches, eta):
-    """Train steps on ``batches`` and an eval step from one state, graphed
-    once and eager twice (``held_to_eager``): every parameter, buffer,
-    Adam moment and step count, loss, corrects, eval logit and the dropout
-    generator's state. cuDNN runs its deterministic algorithms here: its
-    default backward kernels add in a varying order, which Adam's first
-    steps turn into differences of up to ~30 % of a moment between two
-    eager runs of the full-width f32 step, too noisy a yardstick. The
-    model and generator end as they started."""
+def graphed_vs_eager(torch, name, engine, model, prefixes, batches, eta,
+                     eval_batches=None):
+    """Train steps on ``batches`` and eval steps on ``eval_batches``
+    (default: the first batch) from one state, graphed once and eager twice
+    (``held_to_eager``): every parameter, buffer, Adam moment and step
+    count, every output of each step (loss, corrects, eval logits, MM-IMDB's
+    predictions) and the dropout generator's state. cuDNN runs its
+    deterministic algorithms here: its default backward kernels add in a
+    varying order, which Adam's first steps turn into differences of up to
+    ~30 % of a moment between two eager runs of the full-width f32 step,
+    too noisy a yardstick. The model and generator end as they started."""
     from mfas_tpu_torch.engine.classifier import set_trainable, snapshot
 
     start, gen = snapshot(model), engine.generator.get_state()
@@ -867,10 +883,12 @@ def graphed_vs_eager(torch, name, engine, model, prefixes, batches, eta):
             opt = engine.make_optimizer()
             got = {}
             for i, b in enumerate(batches):
-                got[f"loss{i}"], got[f"corrects{i}"] = engine.train_step(
-                    b, opt, eta)
+                for j, t in enumerate(engine.train_step(b, opt, eta)):
+                    got[f"train{i}/{j}"] = t
             model.eval()
-            got["eval_logits"] = engine.eval_step(batches[0])[2]
+            for i, b in enumerate(eval_batches or batches[:1]):
+                for j, t in enumerate(engine.eval_step(b)):
+                    got[f"eval{i}/{j}"] = t
             got.update({f"state/{k}": v.detach().clone()
                         for k, v in model.state_dict().items()})
             for p, st in opt.state.items():
@@ -942,9 +960,9 @@ def training_phase(torch, work, packed):
             # eval graph per phase's dev split, each replayed once per
             # batch; the test split replays the last dev graph, except on
             # the resident path, whose test store (another address) is
-            # another graph; --remat stays eager, by configuration
+            # another graph; --remat too (the recomputation in the graph)
             n_phases = len(run.train)
-            want_graphs = {} if "--remat" in extra else {
+            want_graphs = {
                 "ClassifierEngine_train": {
                     "captures": n_phases,
                     "replays": n_epochs * BATCHES["train"]},
@@ -1007,25 +1025,33 @@ def training_phase(torch, work, packed):
 
 
 # warm steps: (untimed, timed, profiled) calls
-WARM_STEPS = (2, 5, 3)
+WARM_STEPS = (2, 5, 2)
+REMAT_WARM = (1, 3, 2)      # --remat's phase-2 step: 850 ms
+# the graphed --remat phase-2 step's allocated peak, capture included
+# (13.70 GiB eager and 36.42 GiB without remat on an H100, PERF.md)
+REMAT_PEAK_GIB = 15.0
 SEARCH_STEPS = (3, 20, 5)
 FEATURE_STEPS = (2, 5, 2)   # the streamed features: 170 ms a call
 
 
 def warm_train_steps(torch, work, packed):
     """Steady-state train step times at full width, B=20, on the resident
-    path (K2 inside the step): for f32, bf16 and remat, phase 1 (central
-    weights) and phase 2 (whole net), eager and then graphed in one call
-    (``paired_train_steps``: median of the WARM_STEPS timed steps after the
-    untimed ones, each ended by a synchronize, peak allocated memory, then
-    profiled steps: device time per step by kernel class, busy share,
-    kernels per step); --remat stays eager, by configuration. Then each
-    graphed step held to the eager one from the same state
-    (``graphed_vs_eager``: two train steps and an eval step)."""
+    path (K2 inside the step): f32 phase 1 (central weights) and phase 2
+    (whole net), bf16 and remat phase 2, eager and then graphed in one call
+    (``paired_train_steps``: median of the WARM_STEPS (REMAT_WARM) timed
+    steps after the untimed ones, each ended by a synchronize, peak
+    allocated memory, then profiled steps: device time per step by kernel
+    class, busy share, kernels per step), K2 counted once per eager step and once per replay;
+    --remat's graphed phase-2 peak (capture included) held to at most
+    REMAT_PEAK_GIB. Then each graphed step held to the eager one from the
+    same state (``graphed_vs_eager``: two train steps and an eval step;
+    --remat with dropout on, the recomputation reusing its masks)."""
     from mfas_tpu_torch import main_found_ntu as tmain
     from mfas_tpu_torch.data.ntu import Compose, NormalizeLen
     from mfas_tpu_torch.data.resident import ResidentLoader, ResidentNTUStore
     from mfas_tpu_torch.engine.classifier import place_batch
+    from mfas_tpu_torch.ops import input_kernels as tk
+    from mfas_tpu_torch.runtime import graphs
 
     phase("warm train steps, full width, B=20")
     out = {}
@@ -1041,22 +1067,39 @@ def warm_train_steps(torch, work, packed):
         loader = ResidentLoader(store, args.batchsize,
                                 Compose([NormalizeLen(args.vid_len)]))
         batch = place_batch(next(iter(loader)), "cuda")
-        graphed = mode != "remat"
-        check(engine.graphed == graphed,
-              f"{mode}: engine.graphed {engine.graphed}")
-        for name, prefixes in (("central", model.central_params()),
-                               ("whole", None)):
+        check(engine.graphed, f"{mode}: engine.graphed {engine.graphed}")
+        phases = (("central", model.central_params()), ("whole", None))
+        warm = REMAT_WARM if mode == "remat" else WARM_STEPS
+        for name, prefixes in phases[mode != "f32":]:
+            tk.reset_launch_counts()
+            graphs.reset_graph_counts()
             pair = paired_train_steps(
                 torch, work, f"warm {mode} {name}", engine, model, prefixes,
-                batch, args.eta_max, WARM_STEPS, graphed=graphed)
+                batch, args.eta_max, warm)
+            steps = sum(warm)
+            got = (tk.launch_counts["u8_gather_normalize"],
+                   graphs.GRAPH_COUNTS["ClassifierEngine_train"])
+            check(got == (2 * steps, {"captures": 1, "replays": steps}),
+                  f"warm {mode} {name}: K2 launches and graph counts {got}, "
+                  f"want {2 * steps} (eager and replayed) and {steps} "
+                  "replays")
             r = dict(pair["eager"])
             r["train_clips_per_s"] = args.batchsize / r["step_ms"] * 1e3
             r["card_state"] = card_state(f"after warm {mode} {name}")
-            if graphed:
-                r["graphed"] = pair["graphed"]
-                r["graphed_vs_eager"] = graphed_vs_eager(
-                    torch, f"warm {mode} {name}", engine, model, prefixes,
-                    [batch, batch], args.eta_max)
+            r["graphed"] = g = pair["graphed"]
+            r["k2_launches_eager_and_replayed"] = got[0]
+            if mode == "remat" and name == "whole":
+                gib = g["peak_bytes_all"] / 2**30
+                check(gib <= REMAT_PEAK_GIB,
+                      f"warm remat whole: graphed peak {gib:.2f} GiB "
+                      f"allocated, capture included, over {REMAT_PEAK_GIB} "
+                      "GiB")
+                print(f"warm remat whole: graphed peak {gib:.2f} GiB "
+                      f"allocated, capture included, within {REMAT_PEAK_GIB} "
+                      "GiB", flush=True)
+            r["graphed_vs_eager"] = graphed_vs_eager(
+                torch, f"warm {mode} {name}", engine, model, prefixes,
+                [batch, batch], args.eta_max)
             out[f"{mode}_{name}"] = r
         del model, engine, store, loader, batch
         free_card(torch)
@@ -1412,12 +1455,82 @@ def search_phase(torch, work, packed):
           == SEARCH_WS_ROWS * tb,
           f"s3: the candidates' engine graphs {g}, want "
           f"{SEARCH_WS_ROWS * tb} train replays")
+    out["s6_bank_per_step"] = bank_per_step_search(
+        torch, tk, base, tb, db, epochs, k)
     s1, s2 = out["s1_default"], out["s2_cache_features"]
     print(f"s2 vs s1: {s1['seconds'] / s2['seconds']:.2f}x faster")
     out["busy_share"] = search_busy_share(torch, work, base)
     out["steps"] = search_step_times(torch, work, s1_data)
     out["g_graphs"] = graphs_phase(torch, s1_data)
     return out
+
+
+def bank_per_step_search(torch, tk, base, tb, db, epochs, k):
+    """(s6) ``--cache_features --batchnorm --no_fused_epochs`` cut to one
+    search iteration of two fusion steps (32 + ``k`` candidates) on (s1)'s
+    store: the bank's per-step loop, graphed (each bank batch gathered
+    eagerly, then the per-batch train step replayed; each dev batch's eval
+    step replayed) and eager (the trainers' graphed entries off), in one
+    call from one seed: every accuracy the search scored and every
+    population's final parameters and BatchNorm state bitwise; K1 once per
+    bank and dev batch in each (the bank build); in the graphed run one
+    train and one eval replay per batch, captured once per population
+    shape."""
+    from mfas_tpu_torch.search import population as pop
+
+    phase("search (s6): the bank's per-step loop, graphed and eager")
+    argv = base + ["--cache_features", "--batchnorm", "--no_fused_epochs",
+                   "--search_iterations", "1", "--max_fusions", "2"]
+    init, train = (pop.PopulationTrainer.__init__,
+                   pop.PopulationTrainer.train_population)
+    seen, unwrap = _tally_out_dtypes(tk)
+    runs = {}
+    try:
+        for mode in ("graphed", "eager"):
+            finals = []
+
+            def made(self, *a, _graphed=mode == "graphed", **kw):
+                init(self, *a, **kw)
+                self.graphed = _graphed
+
+            def recorded(self, *a, _finals=finals, **kw):
+                result = train(self, *a, **kw)
+                _finals.append(result)
+                return result
+
+            pop.PopulationTrainer.__init__ = made
+            pop.PopulationTrainer.train_population = recorded
+            try:
+                r, _, data = _search_run(
+                    torch, tk, seen, f"s6 --no_fused_epochs {mode}", argv,
+                    tb + db, "torch.bfloat16", 32 + k)
+            finally:
+                pop.PopulationTrainer.__init__ = init
+                pop.PopulationTrainer.train_population = train
+            runs[mode] = (r, data.state(), finals)
+    finally:
+        unwrap()
+    (g, g_data, g_finals), (e, e_data, e_finals) = (runs["graphed"],
+                                                    runs["eager"])
+    check(len(g_finals) == len(e_finals) == 2, "s6: two populations each")
+    same = g_data == e_data and all(
+        ga == ea and all(torch.equal(gt[n], et[n]) for gt, et in
+                         zip(gs, es) for n in et)
+        for (ga, *gs), (ea, *es) in zip(g_finals, e_finals))
+    check(same, "s6: the graphed per-step search differs from the eager "
+          "one in its accuracies or final parameters")
+    for prog, per in (("population_train_step", tb),
+                      ("population_eval_step", db)):
+        got = g["graphs"].get(prog, {"captures": 0, "replays": 0})
+        check(got["replays"] == per * epochs * 2 and got["captures"] <= 2
+              and prog not in e["graphs"],
+              f"s6: {prog} graphed {got}, eager {e['graphs'].get(prog)}; "
+              f"want {per * epochs * 2} replays graphed, none eager")
+    print(f"s6: graphed {g['seconds']:.2f} s against eager "
+          f"{e['seconds']:.2f} s; every accuracy and final parameter "
+          "bitwise", flush=True)
+    return {"graphed": g, "eager": e, "bitwise": same,
+            "k1_launches": g["k1_launches"] + e["k1_launches"]}
 
 
 def search_busy_share(torch, work, base):
@@ -1577,6 +1690,29 @@ def search_step_times(torch, work, s1_data):
         out[f"population_eval_step_P{P}_graphed"] = measure(
             f"population eval step P={P}, graphed epoch", prog.eval_epoch,
             per=-(-GRAPH_BANK[1] // B))
+
+    # the bank's per-step loop (--no_fused_epochs): one batch gathered
+    # from the bank (eagerly), then the per-batch train step, eager and
+    # graphed, P=32
+    gather = pop.PopulationTrainer(spec, torch.nn.Sequential(), device=dev)
+    take, wm = pop.PopulationTrainer._epoch_index_plan(
+        GRAPH_BANK[0], B, np.random.RandomState(SEED))
+    confs = [rows[rs.choice(32, 1 + p % 4)] for p in range(32)]
+    params, bn = pop.init_population(confs, spec, seed=SEED, device=dev)
+    conf = pop.conf_tensors(confs, spec, dev)
+    for mode in ("eager", "graphed"):
+        prog = pop._StreamedSteps(spec, params, bn, conf, device=dev,
+                                  graphed=mode == "graphed")
+        prog.load(params, bn, conf)
+
+        def bank_step():
+            *feats, label, w = gather._bank_batch(bank, take[0], wm[0])
+            prog.train_batch(feats, label, w, 1e-3, g)
+
+        out[f"population_bank_step_P32_{mode}"] = measure(
+            f"population train step P=32, bank per-step loop, {mode}",
+            bank_step)
+        del prog
 
     surrogate = SimpleRecurrentSurrogate(100, 3, 100, device=dev)
     confs, accs = s1_data.get_data()
@@ -2464,7 +2600,7 @@ MM_OTHERS = (("simplevt", ["--channels", "32"]),
                                       "13,25", "--text_first_hidden", "192"]),
              ("vggvt", []),
              ("vggt_centralnet", ["--text_first_hidden", "256"]))
-MM_WARM = (3, 20, 3)        # warm train steps: untimed, timed, profiled
+MM_WARM = (2, 8, 3)         # warm train steps: untimed, timed, profiled
 
 
 def write_mmimdb_store(torch, root, seed):
@@ -2518,19 +2654,38 @@ def all_genres_f1(root, split):
     return samples_f1(labels, np.ones_like(labels))
 
 
-def _mmimdb_run(torch, name, argv):
+def _mm_graphs(train, dev, test, epochs=1):
+    """The graph counts of a found MM-IMDB run over splits of ``train``,
+    ``dev`` and ``test`` full batches (no training when ``train`` is 0):
+    one train graph replayed per train batch; one eval graph (dev and test
+    batches share their shapes at averaged text) replayed per dev and test
+    batch."""
+    want = {"MMIMDBEngine_eval": {"captures": 1,
+                                  "replays": epochs * dev + test}}
+    if train:
+        want["MMIMDBEngine_train"] = {"captures": 1,
+                                      "replays": epochs * train}
+    return want
+
+
+def _mmimdb_run(torch, name, argv, want_graphs):
     """One in-process ``mfas_tpu_torch.main_found_mmimdb`` run: its train
     and dev epochs (finite losses), test samples-F1 in [0, 1], wall time,
-    samples/s and peak allocated memory."""
+    samples/s, peak allocated memory and its engine's graph captures and
+    replays, which must be ``want_graphs``."""
     import numpy as np
 
     from mfas_tpu_torch import main_found_mmimdb as mmain
+    from mfas_tpu_torch.runtime import graphs
 
     free_card(torch)
     torch.cuda.reset_peak_memory_stats()
+    graphs.reset_graph_counts()
     t0 = time.time()
     run, out = _quiet(mmain.main, argv)
     seconds = time.time() - t0
+    gc = {k: dict(v) for k, v in graphs.GRAPH_COUNTS.items()}
+    check(gc == want_graphs, f"{name}: graph counts {gc}, want {want_graphs}")
     epochs = [e for r in run.train for e in r.epochs]
     losses = [e["loss"] for e in epochs if e["phase"] == "train"]
     check(all(np.isfinite(losses)) and 0.0 <= run.acc <= 1.0,
@@ -2540,7 +2695,7 @@ def _mmimdb_run(torch, name, argv):
          "dev_f1": [e["f1"] for e in epochs if e["phase"] == "dev"],
          "peak_bytes": torch.cuda.max_memory_allocated(),
          "eval_samples_per_s": run.eval.clips / run.eval.seconds,
-         "saved": run.saved}
+         "saved": run.saved, "graphs": gc}
     if run.train:
         t = run.train[0]
         r["train_samples_per_s"] = t.train_clips / t.train_seconds
@@ -2552,7 +2707,8 @@ def _mmimdb_run(torch, name, argv):
           + (f"; {r['train_samples_per_s']:.0f} train samples/s (epoch, "
              f"loader included)" if run.train else "")
           + f"; test {r['eval_samples_per_s']:.0f} samples/s; peak "
-          f"{r['peak_bytes'] / 2**30:.2f} GiB allocated", flush=True)
+          f"{r['peak_bytes'] / 2**30:.2f} GiB allocated; graph captures / "
+          f"replays {json.dumps(gc)}", flush=True)
     return r, run
 
 
@@ -2569,13 +2725,16 @@ def mmimdb_found(torch, work, store):
     phase("MM-IMDB (m1) default model, full width")
     base = ["--datadir", store, "--checkpointdir", work]
     out = {}
-    r, run = _mmimdb_run(torch, "m1", base + MM_ARGV + ["--save_checkpoint"])
+    batches = {k: n // 64 for k, n in MM_SPLITS.items()}
+    r, run = _mmimdb_run(torch, "m1", base + MM_ARGV + ["--save_checkpoint"],
+                         _mm_graphs(**batches))
     floor = all_genres_f1(store, "dev")
     r["all_genres_dev_f1"] = floor
     check(r["dev_f1"][0] > floor, f"m1: dev F1 {r['dev_f1'][0]} not above "
           f"the all-genres F1 {floor}")
     again, _ = _mmimdb_run(torch, "m1 --test_cp", base + MM_ARGV + [
-        "--test_cp", os.path.basename(run.saved)])
+        "--test_cp", os.path.basename(run.saved)],
+        _mm_graphs(0, 0, batches["test"]))
     check(again["epochs"] == [] and again["model_f1"] == r["model_f1"],
           f"m1: --test_cp Model F1 {again['model_f1']}, the trained run's "
           f"{r['model_f1']}")
@@ -2589,7 +2748,8 @@ def mmimdb_found(torch, work, store):
     os.makedirs(m2)
     r, run = _mmimdb_run(torch, "m2", ["--datadir", store, "--checkpointdir",
                                        m2, *MM_ARGV, "--central_only",
-                                       "--save_checkpoint"])
+                                       "--save_checkpoint"],
+                         _mm_graphs(**batches))
     built = mmain.build_model(mmain.parse_args(MM_ARGV), "cpu")
     central = tuple(built.central_params())
     saved = load_state_dict(run.saved)
@@ -2612,27 +2772,29 @@ def mmimdb_found(torch, work, store):
     for model, extra in MM_OTHERS:
         out[f"m4_{model}"], _ = _mmimdb_run(
             torch, f"m4 {model}", base + ["--model", model, *extra,
-                                          *MM_SMALL])
+                                          *MM_SMALL], _mm_graphs(4, 1, 1))
     return out
 
 
 def mmimdb_warm_steps(torch, work, store):
     """(m3) warm train steps of the (m1) net on one placed batch of 64,
-    whole net and --central_only: the median of MM_WARM's timed steps
-    after its untimed ones (each ended by a synchronize), peak allocated
-    memory over them, then profiled steps; and the host side apart: the
+    whole net and --central_only, eager and then graphed in one call
+    (``paired_train_steps`` at MM_WARM: median ms, peak allocated and
+    reserved memory, busy share and kernels per step), the graphed
+    whole-net step held to the eager one from the same state under cuDNN's
+    deterministic algorithms (``graphed_vs_eager``, dropout on); the host
+    side apart: the
     train MMIMDBLoader's batch (64 posters read and collated, placed on the
     card)."""
     import numpy as np
 
     from mfas_tpu_torch import main_found_mmimdb as mmain
-    from mfas_tpu_torch.core.optim import make_adam
     from mfas_tpu_torch.data.mm_imdb import MM_IMDB, MMIMDBLoader
-    from mfas_tpu_torch.engine.classifier import place_batch, set_trainable
+    from mfas_tpu_torch.engine.classifier import place_batch
     from mfas_tpu_torch.engine.mmimdb import MMIMDBEngine
 
     phase("MM-IMDB (m3) warm train steps, full width, B=64")
-    n_warm, n_timed, n_prof = MM_WARM
+    n_warm, n_timed, _ = MM_WARM
     args = mmain.parse_args(["--datadir", store, *MM_ARGV])
     loader = MMIMDBLoader(MM_IMDB(store, stage="train", feat_dim=300,
                                   average_text=True,
@@ -2650,44 +2812,115 @@ def mmimdb_warm_steps(torch, work, store):
 
     model = mmain.build_model(args, "cuda")
     engine = MMIMDBEngine(model, "cuda")
+    engine.generator.manual_seed(SEED)
+    check(engine.graphed, "m3: the MM-IMDB engine is not graphed")
     for name, prefixes in (("whole", None),
                            ("central", model.central_params())):
-        set_trainable(model, prefixes)
-        model.train()
-        opt = make_adam(model.parameters(), engine.weight_decay)
-        times = []
-        for i in range(n_warm + n_timed):
-            if i == n_warm:
-                torch.cuda.reset_peak_memory_stats()
-            t0 = time.perf_counter()
-            loss = engine._train_step(batch, opt, args.eta_max)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-            check(np.isfinite(float(loss)), f"m3 {name}: loss {loss}")
-        ms = float(np.median(times[n_warm:])) * 1e3
-        r = {"step_ms": ms, "train_samples_per_s": args.batchsize / ms * 1e3,
-             "peak_bytes": torch.cuda.max_memory_allocated(),
-             "step_ms_all": [t * 1e3 for t in times]}
-        r["profile"] = p = traced(
-            torch, work, f"mmimdb_warm_{name}",
-            lambda: engine._train_step(batch, opt, args.eta_max), n_prof)
+        pair = paired_train_steps(torch, work, f"m3 {name}", engine, model,
+                                  prefixes, batch, args.eta_max, MM_WARM)
+        r = dict(pair["eager"])
+        r["train_samples_per_s"] = args.batchsize / r["step_ms"] * 1e3
+        r["graphed"] = pair["graphed"]
         r["card_state"] = card_state(f"after MM-IMDB warm {name} steps")
-        print(f"m3 {name}: {ms:.2f} ms/step, {r['train_samples_per_s']:.0f} "
-              f"train samples/s, peak {r['peak_bytes'] / 2**30:.2f} GiB; "
-              f"device busy {p['device_busy_ms']:.2f} ms "
-              f"({100 * p['busy_share']:.0f} % of the kernel span), "
-              f"{p['kernels_per_step']:.0f} kernels; "
-              + ", ".join(f"{c} {t:.2f}" for c, t in p["by_class_ms"].items())
-              + "; largest: " + ", ".join(f"{n} {t:.2f}"
-                                          for n, t in p["top_ms"][:5]),
-              flush=True)
+        if name == "whole":
+            r["graphed_vs_eager"] = graphed_vs_eager(
+                torch, f"m3 {name}", engine, model, prefixes, [batch, batch],
+                args.eta_max)
         out[name] = r
-        del opt
     print(f"m3: MMIMDBLoader batch of 64 posters read, collated and placed "
           f"on the card {out['loader_batch_ms']:.2f} ms", flush=True)
     del model, engine, batch
     free_card(torch)
+    out["m6_text_lengths"] = mmimdb_text_lengths(torch)
     return out
+
+
+MM_TEXT_LENGTHS = (8, 16)   # (m6): the two pow-2 buckets alternating
+
+
+def mmimdb_text_lengths(torch):
+    """(m6) ``MMIMDBEngine`` at the library level over a padded-sequence
+    net (``models/mm_imdb.py::SimpleRecurrentModel`` over (64, T, 300)
+    GloVe-like rows, its lengths read from the -10 fill, plus a linear head
+    on the 3x256x160 poster's mean colour and a dead head the loss never
+    reaches), train batches alternating MM_TEXT_LENGTHS: one train graph
+    per length, both alive on one set of gradients, each replayed; one eval
+    graph per length; the dead head without a gradient; held to the eager
+    engine under ``graphed_vs_eager`` (dropout 0.666 on)."""
+    from torch import nn
+
+    from mfas_tpu_torch import main_found_mmimdb as mmain
+    from mfas_tpu_torch.core import layers as L
+    from mfas_tpu_torch.data.mm_imdb import TEXT_PAD_VALUE
+    from mfas_tpu_torch.engine.mmimdb import MMIMDBEngine
+    from mfas_tpu_torch.models.mm_imdb import SimpleRecurrentModel
+    from mfas_tpu_torch.runtime import graphs
+
+    phase("MM-IMDB (m6) two text lengths through one graphed engine")
+
+    class PaddedNet(nn.Module):
+        def __init__(self, args, generator):
+            super().__init__()
+            kw = dict(device="cuda", generator=generator)
+            self.text = SimpleRecurrentModel(args, 100, 300, **kw)
+            self.image = L.Linear(3, args.num_outputs, **kw)
+            self.dead = L.Linear(3, args.num_outputs, **kw)
+
+        def forward(self, text, image):
+            lengths = (text != TEXT_PAD_VALUE).any(-1).sum(1)
+            pooled = image.mean(dim=(2, 3))
+            return self.dead(pooled), self.text(text, lengths) + self.image(
+                pooled)
+
+    args = mmain.parse_args([])
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    B = args.batchsize
+    batches = []
+    for T in MM_TEXT_LENGTHS * 2:
+        lengths = torch.randint(T // 2 + 1, T + 1, (B, 1), device="cuda",
+                                generator=g)
+        rows = torch.arange(T, device="cuda")[None, :] < lengths
+        text = torch.where(rows[..., None],
+                           torch.randn((B, T, 300), device="cuda",
+                                       generator=g), TEXT_PAD_VALUE)
+        label = torch.zeros((B, MM_GENRES), device="cuda")
+        label.scatter_(1, torch.randint(0, MM_GENRES, (B, 2), device="cuda",
+                                        generator=g), 1.0)
+        batches.append({
+            "text": text, "label": label, "_mask": torch.ones(B, device="cuda"),
+            "image": torch.rand((B, 3, MM_POSTER[1], MM_POSTER[0]),
+                                device="cuda", generator=g),
+            "textlen": lengths[:, 0].int()})
+    model = PaddedNet(args, torch.Generator().manual_seed(SEED))
+    engine = MMIMDBEngine(model, "cuda")
+    engine.generator.manual_seed(SEED)
+    graphs.reset_graph_counts()
+    model.train()
+    opt = engine.make_optimizer()
+    losses = [float(engine.train_step(b, opt, args.eta_max)[0])
+              for b in batches]
+    held = engine._programs["train"]._held
+    check(len(engine._programs["train"]) == len(MM_TEXT_LENGTHS)
+          and all(p.grad is t for p, t in held.items())
+          and model.dead.weight.grad is None,
+          "m6: the train graphs do not share one set of gradients, or the "
+          "dead head got one")
+    gc = {k: dict(v) for k, v in graphs.GRAPH_COUNTS.items()}
+    n = len(MM_TEXT_LENGTHS)
+    check(gc == {"MMIMDBEngine_train": {"captures": n,
+                                        "replays": len(batches)}},
+          f"m6: graph counts {gc}")
+    engine.release_graphs()
+    r = {"losses": losses, "graphs": gc}
+    r["graphed_vs_eager"] = graphed_vs_eager(
+        torch, "m6 two text lengths", engine, model, None, batches,
+        args.eta_max, eval_batches=batches[:n])
+    print(f"m6: lengths {list(MM_TEXT_LENGTHS)} alternating, losses "
+          f"{[round(x, 4) for x in losses]}, graph captures / replays "
+          f"{json.dumps(gc)}", flush=True)
+    del model, engine, batches
+    free_card(torch)
+    return r
 
 
 # A gradient vanishes analytically, holding only rounding noise, where its
@@ -4863,7 +5096,7 @@ N1_POOL = ("stem_max_pool", (16, 64, 128, 128), dict(kernel_size=3,
                                                      stride=2, padding=1),
            ("pool_as_slices", "pool_separable"))
 N1_TOL = {"float64": 1e-10, "float32": 1e-4}    # of the default's max
-N2_WARM = (2, 5)        # warm phase-2 steps per turn: untimed, timed
+N2_WARM = (1, 3)        # warm phase-2 steps per turn: untimed, timed
 N3_VARIANTS = ["f32_B16", "bf16_B16", "bf16_B16_chlast", "bf16_B16_3das2d",
                "bf16_B16_seppool"]
 N3_LOSS_TOL = {False: 1e-4, True: 5e-3}     # first-step loss, relative
@@ -5418,8 +5651,10 @@ def main():
     print(json.dumps({"bench": bench, "nvidia_smi": smi}))
     src = "mfas_tpu_torch/csrc/input_kernels.cu"
     # launches: K1's on its two main paths (streamed training, one per
-    # train, dev and test batch; the default search, s1), K2's on the
-    # resident training run; the AV-MNIST, MM-IMDB and CIFAR paths and the
+    # train, dev and test batch; the default search, s1) and in the bank
+    # builds of the per-step bank search (s6, graphed and eager), K2's on
+    # the resident training runs (f32, and --remat from its graph
+    # replays); the AV-MNIST, MM-IMDB and CIFAR paths and the
     # operator tools' (t) launch neither. Phase (d) adds each rank's: K2 on
     # the replicated store ((d1), (d2)), K1 on the sharded store (d3) and
     # in the sharded-bank search's extraction (d4, each rank and the
@@ -5450,6 +5685,8 @@ def main():
     bench_paths = {k: bench["kernel_launches"][k] for k in BENCH_SECTIONS}
     k1_paths = {"found_training_packed_f32": train["b_packed_f32"]["launches"],
                 "search_default_s1": search["s1_default"]["k1_launches"],
+                "search_bank_per_step_s6":
+                search["s6_bank_per_step"]["k1_launches"],
                 **{k: v["u8_normalize"] for k, v in others.items()},
                 **host,
                 **{k: v["u8_normalize"] for k, v in predicts.items()},
@@ -5458,6 +5695,8 @@ def main():
                 **{k: v["u8_normalize"] for k, v in bench_paths.items()}}
     k2_paths = {"found_training_resident_f32":
                 train["a_resident_f32"]["launches"],
+                "found_training_resident_remat":
+                train["d_resident_remat"]["launches"],
                 **{k: v["u8_gather_normalize"] for k, v in others.items()},
                 **{k: 0 for k in host},
                 **{k: v["u8_gather_normalize"]

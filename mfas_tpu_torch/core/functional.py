@@ -265,7 +265,22 @@ def interpolate_bilinear(x, size):
                           align_corners=False).to(x.dtype)
 
 
-def _drop(x, p, mask_shape, generator, shards=()):
+class MaskTape:
+    """The keep masks of the dropouts that draw with it: recorded in order
+    by a first run, handed back in the same order after ``rewind()``, so a
+    rerun (core/remat.py's recomputation) draws nothing and multiplies by
+    the same masks."""
+
+    def __init__(self):
+        self.masks, self._replay = [], None
+
+    def rewind(self):
+        self._replay = iter(self.masks)
+
+
+def _drop(x, p, mask_shape, generator, shards=(), masks=None):
+    if masks is not None and masks._replay is not None:
+        return x * next(masks._replay) / (1.0 - p)
     if generator is None:
         raise ValueError("dropout draws its mask from an explicit "
                          "torch.Generator; got None")
@@ -276,29 +291,33 @@ def _drop(x, p, mask_shape, generator, shards=()):
     keep.bernoulli_(1.0 - p, generator=generator)
     for dim, index, count in shards:
         keep = keep.narrow(dim, index * mask_shape[dim], mask_shape[dim])
+    if masks is not None:
+        masks.masks.append(keep)
     return x * keep / (1.0 - p)
 
 
-def dropout(x, p, generator, shards=()):
+def dropout(x, p, generator, shards=(), masks=None):
     """torch Dropout train mode: zero with prob p, keep scaled by 1/(1-p).
     The mask comes from ``generator`` (on x's device), never from torch's
     global RNG. ``shards``: (dim, index, count) triples saying that ``x``
     is part ``index`` of ``count`` equal parts of a global tensor along
-    ``dim``; the mask is drawn at the global shape and this part kept."""
+    ``dim``; the mask is drawn at the global shape and this part kept.
+    ``masks``: a MaskTape that records the mask, or hands a recorded one
+    back."""
     if p <= 0.0:
         return x
-    return _drop(x, p, x.shape, generator, shards)
+    return _drop(x, p, x.shape, generator, shards, masks)
 
 
-def dropout2d(x, p, generator, shards=()):
+def dropout2d(x, p, generator, shards=(), masks=None):
     """Whole channels (axis 1) on rank >= 3 inputs; element-wise on rank
     <= 2, as the JAX package's dropout2d."""
     if p <= 0.0:
         return x
     if x.dim() <= 2:
-        return dropout(x, p, generator, shards)
+        return dropout(x, p, generator, shards, masks)
     return _drop(x, p, x.shape[:2] + (1,) * (x.dim() - 2), generator,
-                 shards)
+                 shards, masks)
 
 
 def cross_entropy(logits, labels, weights=None, count=None):

@@ -229,12 +229,16 @@ class _DropoutBase(StochasticLayer):
     def __init__(self, p=0.5):
         super().__init__()
         self.p = float(p)
+        # a functional.MaskTape while a rematerialized segment runs
+        # (core/remat.py)
+        self.masks = None
 
     def forward(self, x):
         if not self.training:
             return x
         return type(self)._fn(x, self.p, self._train_generator(),
-                              shards=(self.shard,) if self.shard else ())
+                              shards=(self.shard,) if self.shard else (),
+                              masks=self.masks)
 
 
 class Dropout(_DropoutBase):

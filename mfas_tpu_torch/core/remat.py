@@ -11,12 +11,14 @@ gradients are the same.
 
 The recomputation must not change two things:
 
-* dropout masks. A segment's dropout layers draw from an explicit
-  ``torch.Generator``, which ``torch.utils.checkpoint`` does not restore
-  (``preserve_rng_state`` covers only torch's global RNG). The recomputation
-  replays each generator from the state it had when the segment first ran,
-  and puts back the state it found, so the training stream goes on as if
-  nothing had been recomputed.
+* dropout masks. A segment's dropout layers draw their masks from an
+  explicit ``torch.Generator`` in its first run and record them on a
+  ``functional.MaskTape``; the recomputation multiplies by the recorded
+  masks and draws nothing, so the training stream goes on as if nothing
+  had been recomputed. Nothing touches a generator's state, which a CUDA
+  graph capture forbids, so a captured train step (engine/classifier.py)
+  recomputes as an eager one does. The masks are what a segment keeps
+  beyond its inputs: (B, C) per Dropout2d of the skeleton net.
 * BatchNorm running statistics. The recomputation runs with
   ``update_running_stats`` off, so they move once per step.
 """
@@ -28,36 +30,41 @@ import functools
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from mfas_tpu_torch.core.functional import MaskTape
 from mfas_tpu_torch.core.layers import _BatchNorm, _DropoutBase
+
+
+def _taped(drops, tape, forward, args):
+    for m in drops:
+        m.masks = tape
+    try:
+        return forward(*args)
+    finally:
+        for m in drops:
+            m.masks = None
 
 
 def _checkpointed(forward, module, *args):
     if not torch.is_grad_enabled():
         return forward(*args)
-    gens = list({id(m.generator): m.generator for m in module.modules()
-                 if isinstance(m, _DropoutBase)
-                 and m.generator is not None}.values())
-    start = [g.get_state() for g in gens]
+    drops = [m for m in module.modules() if isinstance(m, _DropoutBase)]
+    tape = MaskTape()
     first = [True]
 
     def run(*a):
         if first[0]:
             first[0] = False
-            return forward(*a)
+            return _taped(drops, tape, forward, a)
         bns = [m for m in module.modules() if isinstance(m, _BatchNorm)]
         flags = [bn.update_running_stats for bn in bns]
-        found = [g.get_state() for g in gens]
-        for g, s in zip(gens, start):
-            g.set_state(s)
+        tape.rewind()
         for bn in bns:
             bn.update_running_stats = False
         try:
-            return forward(*a)
+            return _taped(drops, tape, forward, a)
         finally:
             for bn, f in zip(bns, flags):
                 bn.update_running_stats = f
-            for g, s in zip(gens, found):
-                g.set_state(s)
 
     # no global RNG is drawn from inside a segment: nothing to preserve
     return checkpoint(run, *args, use_reentrant=False,

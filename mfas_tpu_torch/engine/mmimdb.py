@@ -19,6 +19,24 @@ apart from the CLI's init seed 0). Batches are collated and placed one
 ahead (``prefetch_to_device``); per-batch losses and predictions stay on
 the device until their phase ends.
 
+CUDA graphs (the counterpart of the JAX engine's jitted train and eval
+programs, one per (phase, text length), mfas_tpu/engine/mmimdb.py:102-125):
+on a CUDA device with no data group, ``train_step`` and ``eval_step``
+replay CUDA graphs (runtime/graphs.py::Step) of the eager step
+(``_step``, and ``_eval``: the logits and the thresholded predictions),
+captured once per batch signature, so each text length a loader pads to
+has its graph, as each has its JAX program; the 25th graph warns as the
+JAX engine's 25th program does. Adam is capturable with its learning rate
+on the card (``make_optimizer``), which ``set_lr`` fills before each
+replay. The train graphs of one optimizer live side by side on gradients of
+fixed address (``graphs.Step``'s ``grads``: the step zeroes them in place),
+and only parameters the loss reaches have one, so the dead heads stay
+grad-None and unstepped; another optimizer frees the engine's graphs
+first. The train and eval graphs share one memory pool. Under a data group
+the steps stay eager (NCCL capture at world > 1 cannot be checked on one
+card, and gloo cannot be captured). On the CPU every step runs eagerly
+through the same functions.
+
 ``group`` (parallel/mesh.py): data parallelism as ``ClassifierEngine``'s
 (rows per rank, the global masked mean, gradients SUMmed before Adam,
 BatchNorm and dropout over the global batch, the epoch loss reduced); the
@@ -31,6 +49,8 @@ from __future__ import annotations
 
 import math
 import time
+import warnings
+import weakref
 
 import numpy as np
 import torch
@@ -44,6 +64,10 @@ from mfas_tpu_torch.engine.classifier import (TRAIN_SEED_OFFSET, EvalRecord,
                                               TrainRecord, _sync, place_batch,
                                               set_trainable, snapshot)
 from mfas_tpu_torch.parallel import mesh as pm
+from mfas_tpu_torch.runtime import graphs
+
+# the JAX engine warns when it compiles more (phase, text length) programs
+MAX_PROGRAMS = 24
 
 
 class MMIMDBEngine:
@@ -65,6 +89,8 @@ class MMIMDBEngine:
         self.generator = torch.Generator(device=self.device)
         set_dropout_generator(model, self.generator)
         set_data_group(model, group)
+        self.graphed = self.device.type == "cuda" and group is None
+        self._programs, self._graphs_for, self._pool = {}, None, None
         self.train_records = []
         self.last_eval = None
 
@@ -73,17 +99,103 @@ class MMIMDBEngine:
         out = self.model(batch["text"], batch["image"])
         return out[-1] if isinstance(out, (tuple, list)) else out
 
-    def _train_step(self, batch, optimizer, eta):
+    def make_optimizer(self):
+        """A fresh Adam over the model's trainable parameters, capturable
+        (a device learning rate) on the card."""
+        return make_adam(self.model.parameters(), self.weight_decay,
+                         capturable=self.device.type == "cuda")
+
+    def _step(self, batch, optimizer, set_to_none=True):
+        """One train step at the learning rate already in ``optimizer``;
+        a graph zeroes the gradients in place (``set_to_none=False``)."""
         per = F.weighted_bce_elements(self._forward(batch), batch["label"],
                                       self.pos_weight, stable=self.stable_bce)
         loss = F.masked_mean(per.mean(dim=1), batch["_mask"],
                              batch.get("_count"))
-        optimizer.zero_grad(set_to_none=True)
+        optimizer.zero_grad(set_to_none=set_to_none)
         loss.backward()
         pm.all_reduce_grads(self.model.parameters(), self.group)
-        set_lr(optimizer, eta)
         optimizer.step()
         return loss.detach()
+
+    def _train_step(self, batch, optimizer, eta):
+        """The eager train step: the loss on the device."""
+        set_lr(optimizer, eta)
+        return self._step(batch, optimizer)
+
+    def _eval(self, batch):
+        """The eager eval step: (logits, predictions at sigmoid >
+        th_fscore), the split's rows on every rank."""
+        out = pm.all_gather_rows(self._forward(batch), self.group)
+        return out, torch.sigmoid(out) > self.th_fscore
+
+    def train_step(self, batch, optimizer, eta):
+        """One train step, ``(loss,)`` on the device, a tuple of outputs as
+        ``ClassifierEngine.train_step`` returns: a replay of the step
+        captured for this batch's signature when ``self.graphed``, else
+        ``_train_step``."""
+        if not self.graphed:
+            return (self._train_step(batch, optimizer, eta),)
+        set_lr(optimizer, eta)
+        return self._replay("train", batch, optimizer)
+
+    def eval_step(self, batch):
+        """One eval step under inference mode, (logits, predictions) on
+        the device: a replay when ``self.graphed``."""
+        with torch.inference_mode():
+            if not self.graphed:
+                return self._eval(batch)
+            return self._replay("eval", batch)
+
+    def release_graphs(self):
+        """Free the captured steps and the gradients the train graphs
+        hold."""
+        self._programs, self._graphs_for, self._pool = {}, None, None
+        for p in self.model.parameters():
+            p.grad = None
+
+    def _replay(self, kind, batch, optimizer=None):
+        prog = self._program(kind, optimizer)
+        if not prog.has(batch) and sum(map(
+                len, self._programs.values())) == MAX_PROGRAMS:
+            warnings.warn(
+                f"MMIMDBEngine captured {MAX_PROGRAMS} distinct (phase, "
+                "text_len) graphs; MMIMDBLoader pads text to pow-2 buckets "
+                "to bound them", RuntimeWarning, stacklevel=3)
+        return prog(batch)
+
+    def _program(self, kind, optimizer=None):
+        """The engine's ``graphs.Step`` of ``kind`` ("train" for
+        ``optimizer``, or "eval"), built on first use; its graphs are keyed
+        by batch signature (one per text length)."""
+        if kind == "train" and self._graphs_for is not optimizer:
+            self.release_graphs()
+            self._graphs_for = optimizer
+        prog = self._programs.get(kind)
+        if prog is None:
+            if self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+            model, name = self.model, f"{type(self).__name__}_{kind}"
+            # held weakly, as ClassifierEngine's graphs hold theirs
+            engine = weakref.proxy(self)
+            if kind == "train":
+                def state():
+                    return [*model.parameters(), *model.buffers(),
+                            *(t for st in optimizer.state.values()
+                              for t in st.values() if torch.is_tensor(t))]
+
+                def trained():
+                    return [p for p in model.parameters() if p.requires_grad]
+
+                prog = graphs.Step(
+                    name, lambda b: (engine._step(b, optimizer, False),),
+                    state=state, generators=[self.generator],
+                    pool=self._pool, grads=trained)
+            else:
+                prog = graphs.Step(name, lambda b: engine._eval(b),
+                                   pool=self._pool)
+            self._programs[kind] = prog
+        return prog
 
     def _prefetched(self, loader):
         """(n_valid, host label, host mask, device batch), one batch
@@ -100,18 +212,18 @@ class MMIMDBEngine:
         (samples-F1 of the valid rows, per-batch logits, per-batch masks)."""
         self.model.eval()
         preds, labels, logits, masks = [], [], [], []
+        for _, label, mask, batch in self._prefetched(loader):
+            # the split's logits on every rank (label and mask are the
+            # global batch's host arrays)
+            out, pred = self.eval_step(batch)
+            preds.append(pred)
+            keep = mask > 0
+            labels.append(label[keep])
+            masks.append(mask)
+            if keep_logits:
+                logits.append(out)
+        # one device->host copy per pass
         with torch.inference_mode():
-            for _, label, mask, batch in self._prefetched(loader):
-                # the split's logits on every rank (label and mask are the
-                # global batch's host arrays)
-                out = pm.all_gather_rows(self._forward(batch), self.group)
-                preds.append(torch.sigmoid(out) > self.th_fscore)
-                keep = mask > 0
-                labels.append(label[keep])
-                masks.append(mask)
-                if keep_logits:
-                    logits.append(out)
-            # one device->host copy per pass
             pred = torch.cat(preds).cpu().numpy()
         pred = pred[np.concatenate(masks) > 0]
         return samples_f1(np.concatenate(labels) > 0.5, pred), logits, masks
@@ -125,9 +237,10 @@ class MMIMDBEngine:
         model in the best state (the initial one when no dev epoch beat
         ``init_f1``)."""
         model = self.model
+        self.release_graphs()
         set_trainable(model, trainable_prefixes)
         pm.replicate(model.state_dict().values(), self.group)
-        optimizer = make_adam(model.parameters(), self.weight_decay)
+        optimizer = self.make_optimizer()
         best_f1 = init_f1
         best = snapshot(model)
         record = TrainRecord()
@@ -146,8 +259,8 @@ class MMIMDBEngine:
                 losses, n_valid = [], []
                 t0 = time.perf_counter()
                 for n, _, _, batch in self._prefetched(dataloaders["train"]):
-                    losses.append(self._train_step(batch, optimizer,
-                                                   scheduler.step()))
+                    losses.append(self.train_step(batch, optimizer,
+                                                  scheduler.step())[0])
                     n_valid.append(n)
                 _sync(self.device)
                 record.train_seconds += time.perf_counter() - t0

@@ -22,7 +22,11 @@ fills them with ``copy_`` before each replay; resident tensors (a store
 already on the card at a stable address, which rides in every batch) pass
 through uncopied; the outputs are cloned, since the next replay overwrites
 them; the warm-up's moves of the step's state (parameters, buffers,
-optimizer state, generators) are undone into the same tensors.
+optimizer state, generators) are undone into the same tensors. A train
+step's graphs either keep one signature at a time (``exclusive``: the
+gradients live in the graph's pool) or live side by side on gradients of
+fixed address (``grads``: allocated by the first warm-up, outside every
+pool, and zeroed in place by the step).
 
 Counters: a dict registered with ``count_replays`` (the input kernels'
 ``launch_counts``) counts what a call does. A replay adds what the captured
@@ -114,13 +118,20 @@ def _record(fn, generators, pool, mark):
     return graph, out
 
 
-def capture(name, fn, generators=(), pool=None):
-    """``fn()`` warmed up and captured (see the module docstring)."""
+def capture(name, fn, generators=(), pool=None, warmed=None):
+    """``fn()`` warmed up and captured (see the module docstring);
+    ``warmed()``, when given, is called between the warm-up and the
+    capture."""
     counters = list(_REPLAY_COUNTERS)
     before = [dict(c) for c in counters]
     at_capture = []
-    graph, out = _record(fn, generators, pool, lambda: at_capture.extend(
-        dict(c) for c in counters))
+
+    def mark():
+        at_capture.extend(dict(c) for c in counters)
+        if warmed is not None:
+            warmed()
+
+    graph, out = _record(fn, generators, pool, mark)
     added = []
     for counter, start, old in zip(counters, at_capture, before):
         delta = {k: v - start.get(k, 0) for k, v in counter.items()
@@ -151,16 +162,32 @@ class Step:
     resident: batch keys passed through uncopied. pool: the memory pool the
     graphs share (``torch.cuda.graph_pool_handle()``), or None for one of
     their own. exclusive: keep only the latest signature's graph (a train
-    step's gradients live at one address per parameter, which the next
-    capture frees and reuses)."""
+    step whose gradients the backward allocates: they land in the graph's
+    pool, which the next capture frees and reuses). grads: a callable
+    returning the parameters a train step trains, for train graphs of
+    several signatures alive at once; ``fn`` zeroes their gradients in
+    place (``zero_grad(set_to_none=False)``) so that the backward adds
+    into them. The first capture's warm-up allocates them, outside every
+    pool, for the parameters that receive one, and the Step holds them for
+    as long as its graphs live: every graph reads and writes the same
+    tensors. A parameter the loss never reaches keeps no gradient, so an
+    optimizer that skips grad-None parameters never steps it. A capture
+    that would move a held gradient raises."""
 
     def __init__(self, name, fn, *, state=tuple, generators=(),
-                 resident=(), pool=None, exclusive=False):
+                 resident=(), pool=None, exclusive=False, grads=None):
         self.name, self.fn = name, fn
         self.state, self.generators = state, tuple(generators)
         self.resident, self.pool = frozenset(resident), pool
-        self.exclusive = exclusive
-        self._graphs = {}
+        self.exclusive, self.grads = exclusive, grads
+        self._graphs, self._held = {}, None
+
+    def __len__(self):
+        return len(self._graphs)
+
+    def has(self, batch):
+        """Whether ``batch``'s signature has its graph already."""
+        return _signature(batch, self.resident) in self._graphs
 
     def __call__(self, batch):
         key = _signature(batch, self.resident)
@@ -185,9 +212,22 @@ class Step:
                 buf.copy_(batch[k])
             saved = [(t, t.clone()) for t in self.state()]
         gen_states = [g.get_state() for g in self.generators]
+        if self._held is not None:
+            # an eager step in between may have dropped them
+            for p, g in self._held.items():
+                p.grad = g
         fn = self.fn
         graph = capture(self.name, lambda: tuple(fn(bound)),
-                        self.generators, self.pool)
+                        self.generators, self.pool,
+                        None if self.grads is None else self._hold_grads)
+        if self.grads is not None:
+            moved = [p for p in self.grads()
+                     if p.grad is not self._held.get(p)]
+            if moved:
+                raise RuntimeError(
+                    f"{self.name}: the capture moved or made the gradients "
+                    f"of {len(moved)} parameters; a graph of this step "
+                    "must zero its gradients in place")
         with torch.no_grad():
             kept = {id(t) for t, _ in saved}
             for t, v in saved:
@@ -198,3 +238,10 @@ class Step:
         for g, s in zip(self.generators, gen_states):
             g.set_state(s)
         return static, graph
+
+    def _hold_grads(self):
+        """After the first warm-up: the gradients it allocated are the
+        ones every graph of this Step reads and writes."""
+        if self._held is None:
+            self._held = {p: p.grad for p in self.grads()
+                          if p.grad is not None}

@@ -35,21 +35,23 @@ path. On a CUDA device its train steps and its dev steps are CUDA graphs
 epoch has at most MAX_GRAPH_STEPS steps. On the CPU the same step functions
 run eagerly.
 
-The streamed path (no bank, no data or pop group): each train batch's
-backbone features and the population's ``train_step`` run once per batch,
-as the JAX package's jitted ``features`` and ``train_step`` do, and each
-dev batch's ``eval_step`` over the per-batch dev cache. On a CUDA device
-each of the three is a CUDA graph replayed per batch: the train-mode
-features (K1 inside) captured per input shape on the trainer
+The per-batch path (no data or pop group, and no fused epoch): each train
+batch's backbone features (streamed: extracted in train mode; with a bank
+whose epochs are not fused, ``--no_fused_epochs`` or a dev split over
+MAX_DEV_BANK: gathered from it, eagerly, as the JAX package dispatches its
+``bank_gather`` on its own) and the population's ``train_step`` run once per
+batch, as the JAX package's jitted ``features`` and ``train_step`` do, and
+each dev batch's ``eval_step`` over the per-batch dev cache. On a CUDA
+device each is a CUDA graph replayed per batch: the train-mode features
+(K1 inside) captured per input shape on the trainer
 (``streamed_features``), the two steps over static copies of the
 population, its Adam state and its learning rate in a process-wide cache
 by shape (``streamed_steps``), so a fresh population is copied in, not
 captured again. On the CPU the same functions run eagerly. Every Adam
-here is the JAX package's ``adam_update``, so the per-batch, streamed and
-fused paths step alike. The per-step loop stays eager, chosen by
-configuration: under a data or pop group (NCCL capture at world > 1 cannot
-be checked on one card, and gloo cannot be captured) and with
-``fused_epochs=False`` (``--no_fused_epochs``) on a bank.
+here is the JAX package's ``adam_update``, so the per-batch and fused
+paths step alike. The per-step loop stays eager, chosen by configuration,
+under a data or pop group (NCCL capture at world > 1 cannot be checked on
+one card, and gloo cannot be captured).
 
 Several processes (parallel/mesh.py) lay out as a (pop, data) grid. The
 ``data`` group splits every batch by rows: each rank extracts features of
@@ -1119,6 +1121,21 @@ class PopulationTrainer:
                                                     shuffle_rs)):
             yield self._bank_batch(bank, take, wm)
 
+    def _train_batches(self, bank, loader, bank_rs, input_keys, label_key):
+        """(features (fa, fb, lb, la), label, wmask) of each train batch of
+        an epoch: gathered from ``bank`` under a fresh shuffle of
+        ``bank_rs``, or the train-mode features of each loader batch."""
+        if bank is not None:
+            for *feats, label, wmask in self._bank_batches(
+                    bank, loader.batch_size, bank_rs):
+                yield feats, label, wmask
+            return
+        for inputs, label, wmask in self._placed_batches(loader, input_keys,
+                                                         label_key):
+            with self._section("features"):
+                feats = self.streamed_features(inputs)
+            yield feats, label, wmask
+
     def _step(self, params, bn_state, adam, conf, batch, eta, batch_size,
               pop_split):
         with self._section("population steps"):
@@ -1247,17 +1264,16 @@ class PopulationTrainer:
                        for t, w in zip(*dev_plan)]
                 record("train", tr, bs)
                 best = np.maximum(best, record("dev", dev, dev_bs))
-        elif bank is None and self.group is None and self.pop_group is None:
-            # the streamed per-batch programs (graphed on the card)
+        elif self.group is None and self.pop_group is None:
+            # the per-batch programs (graphed on the card)
             prog = streamed_steps(spec, params, bn_state, conf,
                                   device=self.device, graphed=self.graphed)
             prog.load(params, bn_state, conf)
             for epoch in range(num_epochs):
                 n = 0
-                for inputs, label, wmask in self._placed_batches(
-                        dataloaders["train"], input_keys, label_key):
-                    with self._section("features"):
-                        feats = self.streamed_features(inputs)
+                for feats, label, wmask in self._train_batches(
+                        bank, dataloaders["train"], bank_rs, input_keys,
+                        label_key):
                     with self._section("population steps"):
                         prog.train_batch(feats, label, wmask,
                                          scheduler.step(), self.generator)
@@ -1277,17 +1293,10 @@ class PopulationTrainer:
             for epoch in range(num_epochs):
                 for phase in ("train", "dev"):
                     terms = []
-                    if phase == "train" and bank is not None:
-                        for batch in self._bank_batches(bank, bs, bank_rs):
-                            bn_state, _, corr = self._step(
-                                params, bn_state, adam, conf, batch,
-                                scheduler.step(), bs, pop_split)
-                            terms.append(corr)
-                    elif phase == "train":
-                        for inputs, label, wmask in self._placed_batches(
-                                dataloaders[phase], input_keys, label_key):
-                            with self._section("features"):
-                                feats = self._features(inputs, True)
+                    if phase == "train":
+                        for feats, label, wmask in self._train_batches(
+                                bank, dataloaders[phase], bank_rs,
+                                input_keys, label_key):
                             bn_state, _, corr = self._step(
                                 params, bn_state, adam, conf,
                                 (*feats, label, wmask), scheduler.step(),

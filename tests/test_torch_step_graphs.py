@@ -99,18 +99,28 @@ def eager_graphs(monkeypatch):
     graphs.reset_graph_counts()
 
 
-def force_graphed(monkeypatch):
-    """Every ClassifierEngine and PopulationTrainer built from here on
-    takes its graphed entries on the CPU (no group, no remat in these
-    runs)."""
+def force_graphed(monkeypatch, remat=False):
+    """Every ClassifierEngine, MMIMDBEngine and PopulationTrainer built from
+    here on takes its graphed entries on the CPU (no group in these runs;
+    no remat unless ``remat``)."""
+    from mfas_tpu_torch.engine import mmimdb as tmm
+
     init = tengine.ClassifierEngine.__init__
 
     def engine_init(self, *a, **k):
         init(self, *a, **k)
-        assert self.group is None and not k.get("remat")
+        assert self.group is None and (remat or not k.get("remat"))
         self.graphed = True
 
     monkeypatch.setattr(tengine.ClassifierEngine, "__init__", engine_init)
+    mm_init = tmm.MMIMDBEngine.__init__
+
+    def mm_engine_init(self, *a, **k):
+        mm_init(self, *a, **k)
+        assert self.group is None
+        self.graphed = True
+
+    monkeypatch.setattr(tmm.MMIMDBEngine, "__init__", mm_engine_init)
     monkeypatch.setattr(tpop, "_STREAMED_CACHE", {})
     trainer_init = tpop.PopulationTrainer.__init__
 
