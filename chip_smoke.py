@@ -64,7 +64,9 @@
    against CPU: in f64 with --batchnorm, the loss within 1e-4 relative and
    every gradient and BatchNorm statistic within 1e-3 of its tensor's max;
    in f32, the loss within 1e-4 relative and the gradients no further from
-   the CPU's f64 ones than the CPU's f32 ones are (card_vs_cpu says why);
+   the CPU's f64 ones than the CPU's f32 ones are (card_vs_cpu says why),
+   for the eager step and for the graphed one (a replay of the captured
+   ``train_step``), both under cuDNN's default algorithms;
 10. the NTU search at full width through ``mfas_tpu_torch.main_searchable_ntu``
    with the CLI's defaults (12 EPNAS steps, 197 candidates) on a store whose
    trainexp split is the train clips and whose dev split holds one clip of
@@ -206,7 +208,19 @@
    --test_cp --hbm_resident with --use_dataparallel prints the plain run's
    Model Acc and logits bitwise, and all_reduce_grads, the synced
    BatchNorm (forward and backward) and gather_rows over the one-rank group
-   equal their no-group versions bitwise; then two gloo ranks time-sharing
+   equal their no-group versions bitwise; the steps captured as CUDA graphs
+   over that NCCL group (d1_group_graphs; the CLIs' --use_dataparallel
+   takes the one-rank group as its data group there): the full-width
+   resident found net (conf 4, B=20, f32) over two train steps and an eval
+   step, K2 inside, and MM-IMDB's padded-sequence net of (m6) at two text
+   lengths, each graphed bitwise eager under cuDNN's deterministic
+   algorithms and bitwise the same steps without a group; (d4)'s
+   --cache_features --batchnorm --shard_feature_bank search, graphed
+   (population_train_epoch replayed) and eager, its first step's confs
+   and accuracies equal to the one-rank search's (d4_one, run before);
+   and the same search streamed at one epoch (population_features and
+   the streamed train and eval steps replayed), graphed, eager and
+   without a group, equal; then two gloo ranks time-sharing
    the card (CUDA tensors staged through the host), each a subprocess: (d2)
    one warm phase-2 step of the full-width net (conf 4, B=20, 10 rows and
    one K2 launch per rank, --drpt 0) against the one-rank step, in float64
@@ -226,7 +240,9 @@
    search on one rank, at least 3 distinct first-step accuracies on each,
    and a resume from rank 0's state that agrees; (d5) the CIFAR found net with
    --drop_path 0.1, 3 steps at B=128: the ranks' parameters bitwise equal
-   after each. No rate of (d2)-(d5) is a scaling figure;
+   after each. Gloo runs its collectives on the host, so (d2)-(d5)
+   capture nothing (their GRAPH_COUNTS stay empty). No rate of (d2)-(d5)
+   is a scaling figure;
 18. the rest of the NTU vertical (phase (n), ntu_rest_phase): (n1) each
    layout option of core/functional.py (conv_channels_last, conv3d_as_2d,
    conv1x1_as_matmul, pool_as_slices, pool_separable) at ResNet-50's layer
@@ -275,6 +291,7 @@ bound; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero.
 """
 
+import contextlib
 import gc
 import json
 import math
@@ -856,7 +873,7 @@ def held_to_eager(torch, name, runs):
 
 
 def graphed_vs_eager(torch, name, engine, model, prefixes, batches, eta,
-                     eval_batches=None):
+                     eval_batches=None, keep=False):
     """Train steps on ``batches`` and eval steps on ``eval_batches``
     (default: the first batch) from one state, graphed once and eager twice
     (``held_to_eager``): every parameter, buffer, Adam moment and step
@@ -865,10 +882,12 @@ def graphed_vs_eager(torch, name, engine, model, prefixes, batches, eta,
     deterministic algorithms here: its default backward kernels add in a
     varying order, which Adam's first steps turn into differences of up to
     ~30 % of a moment between two eager runs of the full-width f32 step,
-    too noisy a yardstick. The model and generator end as they started."""
+    too noisy a yardstick. The model and generator end as they started.
+    ``keep``: also return the graphed run's tensors (name -> tensor)."""
     from mfas_tpu_torch.engine.classifier import set_trainable, snapshot
 
     start, gen = snapshot(model), engine.generator.get_state()
+    was_graphed = engine.graphed
     names = {p: n for n, p in model.named_parameters()}
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
@@ -902,9 +921,10 @@ def graphed_vs_eager(torch, name, engine, model, prefixes, batches, eta,
         torch.backends.cudnn.deterministic = deterministic
     model.load_state_dict(start)
     engine.generator.set_state(gen)
-    engine.graphed = True
+    engine.graphed = was_graphed
     free_card(torch)
-    return held_to_eager(torch, name, runs)
+    held = held_to_eager(torch, name, runs)
+    return (held, runs[0]) if keep else held
 
 
 def training_phase(torch, work, packed):
@@ -1126,7 +1146,11 @@ def card_vs_cpu(torch, packed):
     twice the CPU f32's (plus 1e-6), and no tensor's more than ten times
     the CPU f32's (plus 1e-5). This part runs without the head's
     BatchNorm1d, which over 2 samples of the nearly constant pooled
-    features of random backbones is worse still in f32."""
+    features of random backbones is worse still in f32. The card's step
+    runs twice from the same state, both under cuDNN's default algorithms
+    (the ones a user runs): eager (``_train_step``) and graphed (a replay
+    of ``train_step``'s capture, capturable Adam), each held to that
+    rule."""
     import numpy as np
 
     from mfas_tpu_torch import main_found_ntu as tmain
@@ -1137,6 +1161,7 @@ def card_vs_cpu(torch, packed):
     from mfas_tpu_torch.engine.classifier import (WEIGHT_DECAY,
                                                   ClassifierEngine,
                                                   set_trainable)
+    from mfas_tpu_torch.runtime import graphs
 
     phase("one phase-2 train step at full width, card vs CPU")
     argv = ["--packed_datadir", packed, "--device_input_normalize",
@@ -1153,7 +1178,7 @@ def card_vs_cpu(torch, packed):
         {k: v.double() if v.is_floating_point() else v
          for k, v in host.items()})
 
-    def step(name, args, dev, dt, batch, batch_prep):
+    def step(name, args, dev, dt, batch, batch_prep, graphed=False):
         t0 = time.time()
         model = tmain.build_model(args, tmain.FOUND_CONFS[4], dev).to(dt)
         engine = ClassifierEngine(model, dev, multitask=args.multitask,
@@ -1161,9 +1186,19 @@ def card_vs_cpu(torch, packed):
                                   batch_prep=batch_prep)
         set_trainable(model, None)
         model.train()
-        opt = make_adam(model.parameters(), WEIGHT_DECAY)
-        loss, _ = engine._train_step({k: v.to(dev) for k, v in batch.items()},
-                                     opt, args.eta_max)
+        placed = {k: v.to(dev) for k, v in batch.items()}
+        if graphed:
+            check(engine.graphed and not torch.backends.cudnn.deterministic,
+                  f"{name}: not a graphed step under cuDNN's defaults")
+            graphs.reset_graph_counts()
+            opt = engine.make_optimizer()
+            loss, _ = engine.train_step(placed, opt, args.eta_max)
+            check(graphs.GRAPH_COUNTS == {"ClassifierEngine_train": {
+                "captures": 1, "replays": 1}},
+                f"{name}: graph counts {graphs.GRAPH_COUNTS}")
+        else:
+            opt = make_adam(model.parameters(), WEIGHT_DECAY)
+            loss, _ = engine._train_step(placed, opt, args.eta_max)
         grads = {n: p.grad.detach().cpu().double()
                  for n, p in model.named_parameters() if p.grad is not None}
         stats = {k: v.detach().cpu().double()
@@ -1171,6 +1206,7 @@ def card_vs_cpu(torch, packed):
                  if k.endswith(("running_mean", "running_var"))}
         print(f"{name}: loss {float(loss):.12f}, {len(grads)} grads, "
               f"{len(stats)} BatchNorm statistics, {time.time() - t0:.1f} s")
+        engine.release_graphs()
         del model, engine, opt
         free_card(torch)
         return float(loss), grads, stats
@@ -1206,9 +1242,12 @@ def card_vs_cpu(torch, packed):
           f"{stat64_dev} of its max")
 
     lc, gc, _ = step("card f32", args, "cuda", torch.float32, host, prep32)
+    lg, gg, _ = step("card f32 graphed", args, "cuda", torch.float32, host,
+                     prep32, graphed=True)
     lh, gh, _ = step("CPU f32", args, "cpu", torch.float32, host, prep32)
     _, g64, _ = step("CPU f64", args, "cpu", torch.float64, host64, None)
-    check(gc.keys() == gh.keys() == g64.keys(), "grads differ in keys")
+    check(gc.keys() == gg.keys() == gh.keys() == g64.keys(),
+          "grads differ in keys")
     names = sorted(g64)
 
     def norm_err(g):
@@ -1236,6 +1275,23 @@ def card_vs_cpu(torch, packed):
           f"exceeds twice the CPU f32's {wh}")
     check(ratio[worst] <= 1.0, f"card grad {worst}: error {pc[worst]} "
           f"against f64, CPU f32 {ph[worst]}")
+    # the graphed step under cuDNN's default kernels, by the same rule
+    pg, wg = norm_err(gg)
+    loss_rel_g = abs(lg - lh) / abs(lh)
+    ratio_g = {n: pg[n] / (10 * ph[n] + 1e-5) for n in names}
+    worst_g = max(ratio_g, key=ratio_g.get)
+    print(f"graphed card step (cuDNN defaults): loss relative diff "
+          f"{loss_rel_g:.3e}; norm-wise error against f64 {wg:.3e} (eager "
+          f"card {wc:.3e}, CPU f32 {wh:.3e}); worst tensor {worst_g}: "
+          f"{pg[worst_g]:.3e}, CPU f32 {ph[worst_g]:.3e}; graphed vs eager "
+          f"card, largest grad deviation {max_dev(gg, gc)[0]:.3e} of max",
+          flush=True)
+    check(loss_rel_g <= 1e-4, f"graphed card vs CPU loss: relative diff "
+          f"{loss_rel_g}")
+    check(wg <= 2 * wh + 1e-6, f"graphed card gradient error {wg} against "
+          f"f64 exceeds twice the CPU f32's {wh}")
+    check(ratio_g[worst_g] <= 1.0, f"graphed card grad {worst_g}: error "
+          f"{pg[worst_g]} against f64, CPU f32 {ph[worst_g]}")
     return {"f64_batchnorm": {"loss_rel": loss64_rel,
                               "grad_dev": grad64_dev,
                               "grad_dev_tensor": grad64_t,
@@ -1243,7 +1299,11 @@ def card_vs_cpu(torch, packed):
             "f32": {"loss_rel": loss_rel, "grad_dev": dev_card,
                     "grad_dev_tensor": t_card,
                     "cpu32_vs_f64_grad_dev": dev_cpu,
-                    "norm_err_card": wc, "norm_err_cpu32": wh}}
+                    "norm_err_card": wc, "norm_err_cpu32": wh},
+            "f32_graphed": {"loss_rel": loss_rel_g, "norm_err_card": wg,
+                            "worst_tensor": worst_g,
+                            "worst_ratio": ratio_g[worst_g],
+                            "vs_eager_card_grad_dev": max_dev(gg, gc)[0]}}
 
 
 SEARCH_ARGV = ["--device_input_normalize", "--random_backbones",
@@ -2838,25 +2898,19 @@ def mmimdb_warm_steps(torch, work, store):
 MM_TEXT_LENGTHS = (8, 16)   # (m6): the two pow-2 buckets alternating
 
 
-def mmimdb_text_lengths(torch):
-    """(m6) ``MMIMDBEngine`` at the library level over a padded-sequence
-    net (``models/mm_imdb.py::SimpleRecurrentModel`` over (64, T, 300)
-    GloVe-like rows, its lengths read from the -10 fill, plus a linear head
-    on the 3x256x160 poster's mean colour and a dead head the loss never
-    reaches), train batches alternating MM_TEXT_LENGTHS: one train graph
-    per length, both alive on one set of gradients, each replayed; one eval
-    graph per length; the dead head without a gradient; held to the eager
-    engine under ``graphed_vs_eager`` (dropout 0.666 on)."""
+def padded_mm(torch):
+    """(m6)'s padded-sequence MM-IMDB net and batches: (args, a function
+    that makes the net from SEED, the batches). The net is
+    ``models/mm_imdb.py::SimpleRecurrentModel`` over (B, T, 300) GloVe-like
+    rows, its lengths read from the -10 fill, plus a linear head on the
+    3x256x160 poster's mean colour and a dead head the loss never reaches;
+    the batches alternate MM_TEXT_LENGTHS twice, at the CLI's batch size."""
     from torch import nn
 
     from mfas_tpu_torch import main_found_mmimdb as mmain
     from mfas_tpu_torch.core import layers as L
     from mfas_tpu_torch.data.mm_imdb import TEXT_PAD_VALUE
-    from mfas_tpu_torch.engine.mmimdb import MMIMDBEngine
     from mfas_tpu_torch.models.mm_imdb import SimpleRecurrentModel
-    from mfas_tpu_torch.runtime import graphs
-
-    phase("MM-IMDB (m6) two text lengths through one graphed engine")
 
     class PaddedNet(nn.Module):
         def __init__(self, args, generator):
@@ -2891,7 +2945,22 @@ def mmimdb_text_lengths(torch):
             "image": torch.rand((B, 3, MM_POSTER[1], MM_POSTER[0]),
                                 device="cuda", generator=g),
             "textlen": lengths[:, 0].int()})
-    model = PaddedNet(args, torch.Generator().manual_seed(SEED))
+    return (args, lambda: PaddedNet(args, torch.Generator().manual_seed(SEED)),
+            batches)
+
+
+def mmimdb_text_lengths(torch):
+    """(m6) ``MMIMDBEngine`` at the library level over ``padded_mm``'s net,
+    train batches alternating MM_TEXT_LENGTHS: one train graph per length,
+    both alive on one set of gradients, each replayed; one eval graph per
+    length; the dead head without a gradient; held to the eager engine
+    under ``graphed_vs_eager`` (dropout 0.666 on)."""
+    from mfas_tpu_torch.engine.mmimdb import MMIMDBEngine
+    from mfas_tpu_torch.runtime import graphs
+
+    phase("MM-IMDB (m6) two text lengths through one graphed engine")
+    args, build, batches = padded_mm(torch)
+    model = build()
     engine = MMIMDBEngine(model, "cuda")
     engine.generator.manual_seed(SEED)
     graphs.reset_graph_counts()
@@ -4463,10 +4532,15 @@ def rank_main(argv):
         dist.init_process_group(
             "gloo", init_method=f"tcp://{addr}", world_size=world,
             rank=rank, timeout=datetime.timedelta(seconds=D_TIMEOUT))
+    from mfas_tpu_torch.runtime import graphs
+
     res = {}
     try:
         for case in cases:
+            graphs.reset_graph_counts()
             res[case] = RANK_CASES[case](torch, rank, world, addr, work)
+            res[case]["graph_counts"] = {
+                k: dict(v) for k, v in graphs.GRAPH_COUNTS.items()}
             free_card(torch)
     finally:
         if dist.is_initialized():
@@ -4513,7 +4587,8 @@ def rank_d1(torch, rank, world, addr, work):
     slice with --use_dataparallel against the plain run, bitwise; then
     all_reduce_grads, the synced BatchNorm (forward and backward) and
     gather_rows over the one-rank NCCL group against their no-group
-    versions, bitwise."""
+    versions, bitwise; then the steps captured over it
+    (d1_group_graphs)."""
     import numpy as np
     import torch.distributed as dist
 
@@ -4587,6 +4662,197 @@ def rank_d1(torch, rank, world, addr, work):
                         pm.gather_rows(local, idx, None, pick))
         and torch.equal(pm.gather_rows(local, idx, g).cpu(),
                         torch.from_numpy(store)[idx.cpu()]))
+    free_card(torch)
+    out["group_graphs"] = d1_group_graphs(torch, work, g)
+    return out
+
+
+@contextlib.contextmanager
+def world_one_data_group():
+    """The CLIs' --use_dataparallel takes the one-rank default group as its
+    data group (their gate, ``parallel/mesh.py::data_group_from_args``,
+    takes none below two processes), so they run their group paths over
+    it."""
+    import torch.distributed as dist
+
+    from mfas_tpu_torch.parallel import mesh as pm
+
+    real = pm.data_group_from_args
+    pm.data_group_from_args = lambda args: (
+        dist.group.WORLD if getattr(args, "use_dataparallel", False)
+        else None)
+    try:
+        yield
+    finally:
+        pm.data_group_from_args = real
+
+
+@contextlib.contextmanager
+def forced_eager():
+    """Every engine and trainer built inside runs its steps eagerly
+    (``graphs.graphable`` says False): the eager reference of a graphed
+    run."""
+    from mfas_tpu_torch.runtime import graphs
+
+    real = graphs.graphable
+    graphs.graphable = lambda device, *groups: False
+    try:
+        yield
+    finally:
+        graphs.graphable = real
+
+
+def _bitwise_runs(torch, a, b):
+    """Whether two ``graphed_vs_eager(keep=True)`` runs hold the same
+    tensors bitwise."""
+    return a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+
+
+D1_TIMED = 3    # (d1): timed train steps per mode, after a first
+# (d1): (d4)'s search over the one-rank NCCL group, graphed and forced eager,
+# with its bank and streamed, and streamed without the group
+D1_SEARCHES = ("d4_bank_group", "d4_bank_group_eager", "d4_streamed_group",
+               "d4_streamed_group_eager", "d4_streamed_no_group")
+
+
+def d1_step_ms(torch, engine, model, batch, eta):
+    """Median ms of D1_TIMED whole-net train steps after a first (the
+    graphed mode's capture), eager then graphed, from one state."""
+    import numpy as np
+
+    from mfas_tpu_torch.engine.classifier import set_trainable, snapshot
+
+    start, gen = snapshot(model), engine.generator.get_state()
+    out = {}
+    for mode in ("eager", "graphed"):
+        model.load_state_dict(start)
+        engine.generator.set_state(gen)
+        engine.graphed = mode == "graphed"
+        set_trainable(model, None)
+        model.train()
+        opt = engine.make_optimizer()
+        times = []
+        for _ in range(1 + D1_TIMED):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            engine.train_step(batch, opt, eta)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        out[mode] = float(np.median(times[1:])) * 1e3
+        engine.release_graphs()
+        del opt
+        free_card(torch)
+    model.load_state_dict(start)
+    engine.generator.set_state(gen)
+    engine.graphed = True
+    return out
+
+
+def d1_group_graphs(torch, work, group):
+    """(d1)'s CUDA graphs over the one-rank NCCL ``group``: the full-width
+    resident found step (K2 inside), MM-IMDB's two text lengths, and (d4)'s
+    search with its bank and streamed. Each graphed run against its eager
+    run under cuDNN's deterministic algorithms (``graphed_vs_eager``, the
+    engines) or forced eager (the searches), and against the same steps or
+    search without a group; the kernels' launches and the graph counts of
+    each; the warm train steps' ms under the group (``d1_step_ms``; phase 8
+    times the found net's step without one) and MM-IMDB's without."""
+    from mfas_tpu_torch import main_found_ntu as tmain
+    from mfas_tpu_torch.data import ntu as d
+    from mfas_tpu_torch.data.resident import ResidentLoader, ResidentNTUStore
+    from mfas_tpu_torch.engine.classifier import place_batch, snapshot
+    from mfas_tpu_torch.engine.mmimdb import MMIMDBEngine
+    from mfas_tpu_torch.ops import input_kernels as tk
+    from mfas_tpu_torch.runtime import graphs
+
+    out = {}
+    t0 = time.time()
+    dev = torch.device("cuda", torch.cuda.current_device())
+
+    def counted(name, fn):
+        """``fn()`` with the kernels' launches and the graph counts from 0,
+        both kept in ``out[name]``."""
+        tk.reset_launch_counts()
+        graphs.reset_graph_counts()
+        r = fn()
+        out[name] = {"launches": dict(tk.launch_counts),
+                     "graphs": {k: dict(v)
+                                for k, v in graphs.GRAPH_COUNTS.items()}}
+        return r
+
+    # the full-width resident found net, conf 4, B=20, f32, whole net
+    args = tmain.parse_args(["--packed_datadir", os.path.join(work, "packed"),
+                             *TRAIN_ARGV, "--hbm_resident",
+                             "--use_dataparallel"])
+    model = tmain.build_model(args, tmain.FOUND_CONFS[4], dev)
+    store = ResidentNTUStore(os.path.join(args.packed_datadir, "train"), dev,
+                             args=args)
+    loader = ResidentLoader(store, 20, d.Compose([
+        d.AugCrop(), d.NormalizeLen(args.vid_len)]), shuffle=True)
+    host = list(loader)
+    start, runs = snapshot(model), {}
+    for name, g in (("ntu_group", group), ("ntu_no_group", None)):
+        model.load_state_dict(start)
+        engine = tmain.make_engine(model, args, dev, g, store)
+        engine.generator.manual_seed(SEED)
+        check(engine.graphed, f"(d1) {name}: the engine is not graphed")
+        batches = [place_batch(b, dev, g) for b in host]
+        held, runs[name] = counted(name, lambda: graphed_vs_eager(
+            torch, f"(d1) {name}", engine, model, None, batches,
+            args.eta_max, keep=True))
+        out[name]["graphed_vs_eager"] = held
+        if g is not None:
+            # phase 8 times the group-less step (warm f32 whole)
+            out[name]["step_ms"] = d1_step_ms(torch, engine, model,
+                                              batches[0], args.eta_max)
+        del engine, batches
+        free_card(torch)
+    out["ntu_group_equals_no_group"] = _bitwise_runs(
+        torch, runs["ntu_group"], runs["ntu_no_group"])
+    del model, store, loader, runs
+    free_card(torch)
+
+    # MM-IMDB's padded-sequence net at two text lengths
+    mm_args, build, mm_batches = padded_mm(torch)
+    model = build()
+    start, runs = snapshot(model), {}
+    n = len(MM_TEXT_LENGTHS)
+    for name, g in (("mm_group", group), ("mm_no_group", None)):
+        model.load_state_dict(start)
+        engine = MMIMDBEngine(model, dev, group=g)
+        engine.generator.manual_seed(SEED)
+        check(engine.graphed, f"(d1) {name}: the engine is not graphed")
+        batches = [place_batch({k: v.cpu().numpy() for k, v in b.items()},
+                               dev, g) for b in mm_batches]
+        held, runs[name] = counted(name, lambda: graphed_vs_eager(
+            torch, f"(d1) {name}", engine, model, None, batches,
+            mm_args.eta_max, eval_batches=batches[:n], keep=True))
+        out[name]["graphed_vs_eager"] = held
+        out[name]["step_ms"] = d1_step_ms(torch, engine, model, batches[0],
+                                          mm_args.eta_max)
+        del engine, batches
+        free_card(torch)
+    out["mm_group_equals_no_group"] = _bitwise_runs(
+        torch, runs["mm_group"], runs["mm_no_group"])
+    del model, mm_batches, runs
+    free_card(torch)
+
+    # (d4)'s search over the group: the bank (fused epochs) and streamed
+    bank = d4_argv(work) + ["--use_dataparallel", "--shard_feature_bank"]
+    streamed = [a for a in bank if a not in (
+        "--cache_features", "--shard_feature_bank")] + ["--epochs", "1"]
+    argvs = {"d4_bank_group": bank, "d4_bank_group_eager": bank,
+             "d4_streamed_group": streamed,
+             "d4_streamed_group_eager": streamed,
+             "d4_streamed_no_group": [a for a in streamed
+                                      if a != "--use_dataparallel"]}
+    with world_one_data_group():
+        for name in D1_SEARCHES:
+            argv, eager = argvs[name], name.endswith("_eager")
+            with forced_eager() if eager else contextlib.nullcontext():
+                out[name] = d4_search(torch, argv)
+            free_card(torch)
+    out["seconds"] = time.time() - t0
     return out
 
 
@@ -4806,21 +5072,24 @@ def d4_argv(work):
 
 
 def d4_search(torch, argv):
-    """One in-process (d4) search: K1's launches (counted from 0), the
-    seconds, the candidates, the first step's confs and accuracies, the
-    printed listing."""
-    import contextlib
+    """One in-process (d4) search: K1's launches and the graph counts (both
+    from 0), the seconds, the candidates, the first step's confs and
+    accuracies, the printed listing."""
     import io
 
     from mfas_tpu_torch import main_searchable_ntu as smain
     from mfas_tpu_torch.ops import input_kernels as tk
+    from mfas_tpu_torch.runtime import graphs
 
     buf = io.StringIO()
     tk.reset_launch_counts()
+    graphs.reset_graph_counts()
     with contextlib.redirect_stdout(buf):
         run = smain.main(argv)
     text = buf.getvalue()
-    return {"launches": dict(tk.launch_counts), "seconds": run.seconds,
+    return {"launches": dict(tk.launch_counts),
+            "graphs": {k: dict(v) for k, v in graphs.GRAPH_COUNTS.items()},
+            "seconds": run.seconds,
             "candidates": run.candidates,
             "first_step": [[c, a] for L, entries in run.data.state()
                            if L == 1 for c, a in entries],
@@ -4868,7 +5137,7 @@ def rank_d5(torch, rank, world, addr, work):
     for _ in range(D5_STEPS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        engine._train_step(placed, opt, 1e-3)
+        engine.train_step(placed, opt, 1e-3)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         equal.append(_equal_across_ranks(torch, _flat_params(torch, model),
@@ -4881,6 +5150,82 @@ RANK_CASES = {"d1": rank_d1, "d2": rank_d2, "d3": rank_d3, "d4": rank_d4,
               "d5": rank_d5}
 
 
+def check_d1_group_graphs(r, d4_one):
+    """(d1)'s CUDA graphs over the one-rank NCCL group (d1_group_graphs)
+    against their eager runs, the runs without a group and the one-rank
+    (d4) search ``d4_one``."""
+    n = len(MM_TEXT_LENGTHS)
+    want = {
+        "ntu": ({"ClassifierEngine_train": {"captures": 1, "replays": 2},
+                 "ClassifierEngine_eval": {"captures": 1, "replays": 1}},
+                # K2 once per step: 3 replays, then 3 steps per eager run
+                {"u8_normalize": 0, "u8_gather_normalize": 9}),
+        "mm": ({"MMIMDBEngine_train": {"captures": n, "replays": 2 * n},
+                "MMIMDBEngine_eval": {"captures": n, "replays": n}},
+               {"u8_normalize": 0, "u8_gather_normalize": 0})}
+    for net, (graphs_want, launches_want) in want.items():
+        for name in (f"{net}_group", f"{net}_no_group"):
+            check(r[name]["graphed_vs_eager"]["bitwise"],
+                  f"(d1) {name}: graphed not bitwise eager: "
+                  f"{r[name]['graphed_vs_eager']}")
+            check(r[name]["graphs"] == graphs_want
+                  and r[name]["launches"] == launches_want,
+                  f"(d1) {name}: graphs {r[name]['graphs']}, launches "
+                  f"{r[name]['launches']}")
+        check(r[f"{net}_group_equals_no_group"],
+              f"(d1) {net}: the group's graphed steps differ from the "
+              "group-less ones")
+    for name in ("d4_bank_group", "d4_bank_group_eager"):
+        check(r[name]["first_step"] == d4_one["first_step"]
+              and r[name]["listing"] == d4_one["listing"],
+              f"(d1) {name}: the search differs from the one-rank (d4) "
+              f"search: {r[name]['first_step']} vs {d4_one['first_step']}")
+    streamed = ("d4_streamed_group", "d4_streamed_group_eager",
+                "d4_streamed_no_group")
+    for name in streamed[1:]:
+        check(r[name]["first_step"] == r[streamed[0]]["first_step"]
+              and r[name]["listing"] == r[streamed[0]]["listing"]
+              and r[name]["launches"] == r[streamed[0]]["launches"],
+              f"(d1) {name}: the streamed search differs from the graphed "
+              f"one under the group")
+    for name, programs in (
+            ("d4_bank_group", ("population_train_epoch",
+                               "population_eval_epoch")),
+            ("d4_streamed_group", ("population_features",
+                                   "population_train_step",
+                                   "population_eval_step")),
+            ("d4_streamed_no_group", ("population_features",
+                                      "population_train_step",
+                                      "population_eval_step"))):
+        check(all(r[name]["graphs"].get(k, {}).get("replays", 0) > 0
+                  for k in programs),
+              f"(d1) {name}: graph counts {r[name]['graphs']}")
+    for name in ("d4_bank_group_eager", "d4_streamed_group_eager"):
+        check(not any(k.startswith("population_") for k in r[name]["graphs"]),
+              f"(d1) {name}: captured {r[name]['graphs']}")
+    check(r["d4_streamed_group"]["launches"]["u8_normalize"] > 0,
+          f"(d1) the streamed search launched no K1: "
+          f"{r['d4_streamed_group']['launches']}")
+    ms = {k: r[k]["step_ms"] for k in ("ntu_group", "mm_group",
+                                        "mm_no_group")}
+    print(f"(d1) graphed over the one-rank NCCL group, bitwise eager and the "
+          f"group-less steps: found NTU f32 B=20 "
+          f"{json.dumps(r['ntu_group']['graphs'])}, K2 "
+          f"{r['ntu_group']['launches']['u8_gather_normalize']}; MM-IMDB "
+          f"lengths {list(MM_TEXT_LENGTHS)} "
+          f"{json.dumps(r['mm_group']['graphs'])}; train step ms (median of "
+          f"{D1_TIMED}, eager / graphed): {json.dumps(ms)}; (d4) bank search "
+          f"{json.dumps(r['d4_bank_group']['graphs'])} equal to the one-rank "
+          f"search, {r['d4_bank_group']['seconds']:.1f} s graphed, "
+          f"{r['d4_bank_group_eager']['seconds']:.1f} s eager "
+          f"({d4_one['seconds']:.1f} s without a group); streamed, one epoch:"
+          f" {json.dumps(r['d4_streamed_group']['graphs'])}, "
+          f"{r['d4_streamed_group']['seconds']:.1f} s graphed, "
+          f"{r['d4_streamed_group_eager']['seconds']:.1f} s eager, "
+          f"{r['d4_streamed_no_group']['seconds']:.1f} s without a group, "
+          f"equal; {r['seconds']:.1f} s in all", flush=True)
+
+
 def multi_gpu_phase(torch, work, train):
     """(d1)-(d5); returns the measured numbers and each run's kernel
     launches, by path."""
@@ -4891,6 +5236,13 @@ def multi_gpu_phase(torch, work, train):
 
     out = {"label": TIME_SHARING}
     t0 = time.time()
+    free_card(torch)
+
+    phase("(d4) its class-signal store and the one-rank search")
+    t1 = time.time()
+    write_d4_store(work)
+    print(f"(d4) store written in {time.time() - t1:.1f} s", flush=True)
+    d4_one = d4_search(torch, d4_argv(work))
     free_card(torch)
 
     phase("(d1) NCCL at world 1 through --dist_*")
@@ -4906,6 +5258,7 @@ def multi_gpu_phase(torch, work, train):
           f"(d1) launches {d1['launches']}, want 3 of K2 per run")
     print(f"(d1) Model Acc {d1['model_acc']}, logits bitwise, primitives "
           f"bitwise over the one-rank NCCL group", flush=True)
+    check_d1_group_graphs(d1["group_graphs"], d4_one)
     out["d1"] = d1
 
     phase("(d2) the one-rank step, full width, B=20")
@@ -4917,18 +5270,19 @@ def multi_gpu_phase(torch, work, train):
     (ref,), out["d2_one_rank_seconds"] = run_rank_processes(["d2"], 1,
                                                              work)
     ref = ref["d2"]
-    phase("(d4) its class-signal store and the one-rank search")
-    t1 = time.time()
-    write_d4_store(work)
-    print(f"(d4) store written in {time.time() - t1:.1f} s", flush=True)
-    d4_one = d4_search(torch, d4_argv(work))
-    free_card(torch)
     # one pair of rank processes runs (d2)-(d5) in turn
     phase(f"(d2)-(d5) over two ranks ({TIME_SHARING})")
     os.makedirs(os.path.join(work, "d3"))
     ranks, out["d2_d5_seconds"] = run_rank_processes(
         ["d2", "d3", "d4", "d5"], 2, work)
     d2, d3, d4, d5 = ([r[c] for r in ranks] for c in ("d2", "d3", "d4", "d5"))
+    # gloo runs its collectives on the host: nothing under it is captured
+    for case, rs in (("d2", d2), ("d3", d3), ("d4", d4), ("d5", d5)):
+        for i, r in enumerate(rs):
+            check(r["graph_counts"] == {},
+                  f"({case}) rank {i} captured under gloo: "
+                  f"{r['graph_counts']}")
+    print("(d2)-(d5) captured nothing under gloo", flush=True)
     for r in d2:
         for name in ("f32", "f64_remat"):
             m = r[name]
@@ -5059,10 +5413,14 @@ def multi_gpu_phase(torch, work, train):
                r["first"]["launches"]["u8_normalize"]
                for i, r in enumerate(d4)},
             "multi_gpu_d4_search_one_rank":
-            d4_one["launches"]["u8_normalize"]},
+            d4_one["launches"]["u8_normalize"],
+            **{f"multi_gpu_d1_{k}": d1["group_graphs"][k]["launches"][
+                "u8_normalize"] for k in D1_SEARCHES}},
         "u8_gather_normalize": {
             **{f"multi_gpu_d1_world1_{k}": v["u8_gather_normalize"]
                for k, v in d1["launches"].items()},
+            **{f"multi_gpu_d1_{k}": d1["group_graphs"][k]["launches"][
+                "u8_gather_normalize"] for k in ("ntu_group", "ntu_no_group")},
             **{f"multi_gpu_d2_{name}_step_rank{i}":
                r[name]["launches"]["u8_gather_normalize"]
                for i, r in enumerate(d2) for name in ("f32", "f64_remat")},
@@ -5656,11 +6014,13 @@ def main():
     # the resident training runs (f32, and --remat from its graph
     # replays); the AV-MNIST, MM-IMDB and CIFAR paths and the
     # operator tools' (t) launch neither. Phase (d) adds each rank's: K2 on
-    # the replicated store ((d1), (d2)), K1 on the sharded store (d3) and
-    # in the sharded-bank search's extraction (d4, each rank and the
-    # one-rank reference). Phase (n) adds K2 in
-    # --conv_channels_last training (n2) and K1 in the baselines' eval
-    # forwards (n4). Phase (bench), the bench in its own process, adds K1
+    # the replicated store ((d1), (d2); in (d1) also from the found step's
+    # graph replays under the NCCL group and without it), K1 on the sharded
+    # store (d3) and in the sharded-bank search's extraction (d4, each rank
+    # and the one-rank reference; in (d1) each of its searches over the
+    # group, the streamed ones from the features' replays). Phase (n) adds
+    # K2 in --conv_channels_last training (n2) and K1 in the baselines'
+    # eval forwards (n4). Phase (bench), the bench in its own process, adds K1
     # in its search and streamed-input sections and K2 in its resident one.
     # One PyTorch call computes K1's function: torch.addcmul(bias, x_u8,
     # scale), timed beside K1 as its yardstick (library_ms) and called

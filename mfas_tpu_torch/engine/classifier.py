@@ -23,8 +23,9 @@ the device until a phase ends. Batches are collated and copied to the device
 one batch ahead on a background thread (``prefetch_to_device``).
 
 CUDA graphs (the counterpart of the JAX engine's jitted ``_train_step`` and
-``_eval_step``): on a CUDA device with no data group, ``train_step`` and
-``eval_step`` replay CUDA graphs (runtime/graphs.py::Step)
+``_eval_step``): on a CUDA device with no data group or an NCCL one
+(``graphs.graphable``), ``train_step`` and ``eval_step`` replay CUDA graphs
+(runtime/graphs.py::Step)
 of the eager step (``_train_step`` without the learning-rate write, and
 ``_eval``), captured once per batch signature, ``batch_prep`` and its input
 kernels inside. Adam is then capturable with its learning rate on the card
@@ -35,10 +36,12 @@ train graph and the eval graphs share one memory pool. Loaders pad every
 batch to full size, so a split needs one graph; the resident store's
 tensors pass through uncopied (RESIDENT_KEYS). Under ``remat`` the graph
 holds the segments' recomputation too (core/remat.py: it reuses the first
-run's dropout masks and touches no generator state). Stays eager, by
-configuration: under a data group (NCCL capture at world > 1 cannot be
-checked on one card, and gloo cannot be captured). On the CPU every step
-runs eagerly through the same functions.
+run's dropout masks and touches no generator state). Under an NCCL data
+group the train graph holds the gradients' all-reduce and the synced
+BatchNorm's, forward and backward; the static inputs are the rank's rows
+(``place_batch`` splits them on the host) and the global valid count; a
+sharded resident store's row gather runs inside. Under a gloo group, and on
+the CPU, every step runs eagerly through the same functions.
 
 ``compute_dtype=torch.bfloat16`` runs forward and backward under
 ``torch.autocast`` with f32 parameters and Adam; inputs are cast like the
@@ -172,7 +175,7 @@ class ClassifierEngine:
         if remat:
             from mfas_tpu_torch.core.remat import enable_remat
             enable_remat(model.remat_segments())
-        self.graphed = self.device.type == "cuda" and group is None
+        self.graphed = graphs.graphable(self.device, group)
         self._programs, self._graphs_for, self._pool = {}, None, None
         self.last_eval = None
         self.train_records = []

@@ -21,7 +21,8 @@ the device until their phase ends.
 
 CUDA graphs (the counterpart of the JAX engine's jitted train and eval
 programs, one per (phase, text length), mfas_tpu/engine/mmimdb.py:102-125):
-on a CUDA device with no data group, ``train_step`` and ``eval_step``
+on a CUDA device with no data group or an NCCL one (``graphs.graphable``),
+``train_step`` and ``eval_step``
 replay CUDA graphs (runtime/graphs.py::Step) of the eager step
 (``_step``, and ``_eval``: the logits and the thresholded predictions),
 captured once per batch signature, so each text length a loader pads to
@@ -32,10 +33,11 @@ replay. The train graphs of one optimizer live side by side on gradients of
 fixed address (``graphs.Step``'s ``grads``: the step zeroes them in place),
 and only parameters the loss reaches have one, so the dead heads stay
 grad-None and unstepped; another optimizer frees the engine's graphs
-first. The train and eval graphs share one memory pool. Under a data group
-the steps stay eager (NCCL capture at world > 1 cannot be checked on one
-card, and gloo cannot be captured). On the CPU every step runs eagerly
-through the same functions.
+first. The train and eval graphs share one memory pool. Under an NCCL
+data group the train graphs hold the gradients' all-reduce and the eval
+graphs the all-gather of their logits (the JAX engine's replicated
+``out_shardings``). Under a gloo group, and on the CPU, every step runs
+eagerly through the same functions.
 
 ``group`` (parallel/mesh.py): data parallelism as ``ClassifierEngine``'s
 (rows per rank, the global masked mean, gradients SUMmed before Adam,
@@ -89,7 +91,7 @@ class MMIMDBEngine:
         self.generator = torch.Generator(device=self.device)
         set_dropout_generator(model, self.generator)
         set_data_group(model, group)
-        self.graphed = self.device.type == "cuda" and group is None
+        self.graphed = graphs.graphable(self.device, group)
         self._programs, self._graphs_for, self._pool = {}, None, None
         self.train_records = []
         self.last_eval = None

@@ -23,6 +23,16 @@ the bytes (``all_gather_rows``), exact for every dtype, and a gather from a
 store whose rows are split over the group is a masked local gather and the
 same byte SUM (``gather_rows``).
 
+Inside CUDA graphs (runtime/graphs.py::graphable: on the card under NCCL
+groups): ``all_reduce_grads``/``all_reduce_tensors``, ``AllReduceSum``
+forward and backward (``all_reduce_sum``, the synced BatchNorm's and the
+population heads' statistics), ``reduce_sum``, ``all_gather_rows`` and
+``gather_rows`` run inside the engines' and the population's captured
+steps and the fused bank epoch. Each allocates on the card, reads no value
+back to the host and takes no host tensor, so a capture records it whole
+and every replay reruns it. ``replicate``, ``barrier`` and
+``require_resume_agreement`` run between steps, never in a graph.
+
 ``initialize_from_args`` joins the group of the ``--dist_coordinator
 host:port --dist_num_processes N --dist_process_id i`` flags (N counts
 processes, one per GPU, where the JAX package counts hosts), or the one
@@ -267,23 +277,29 @@ def reduce_sum(x, group):
     return y
 
 
-def all_reduce_grads(params, group):
-    """SUM the ``.grad`` of every parameter that has one over ``group``,
-    through one flat buffer per dtype. Every rank runs the same graph, so
-    the set of parameters with a gradient is the same on every rank."""
+def all_reduce_tensors(tensors, group):
+    """SUM ``tensors`` over ``group`` in place, through one flat buffer per
+    dtype."""
     if group is None:
         return
     by_dtype = {}
-    for p in params:
-        if p.grad is not None:
-            by_dtype.setdefault(p.grad.dtype, []).append(p.grad)
-    for grads in by_dtype.values():
-        flat = torch.cat([g.reshape(-1) for g in grads])
+    for t in tensors:
+        by_dtype.setdefault(t.dtype, []).append(t)
+    for ts in by_dtype.values():
+        flat = torch.cat([t.reshape(-1) for t in ts])
         dist.all_reduce(flat, group=group)
         off = 0
-        for g in grads:
-            g.copy_(flat[off:off + g.numel()].view_as(g))
-            off += g.numel()
+        for t in ts:
+            t.copy_(flat[off:off + t.numel()].view_as(t))
+            off += t.numel()
+
+
+def all_reduce_grads(params, group):
+    """SUM the ``.grad`` of every parameter that has one over ``group``
+    (``all_reduce_tensors``). Every rank runs the same graph, so the set of
+    parameters with a gradient is the same on every rank."""
+    all_reduce_tensors([p.grad for p in params if p.grad is not None],
+                       group)
 
 
 def _byte_sum(x, group):

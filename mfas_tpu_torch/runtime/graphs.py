@@ -2,7 +2,8 @@
 package's jitted ``lax.scan`` programs (search/surrogate.py's fit and
 predict, search/population.py's fused bank epoch) and of its per-batch
 jitted steps (engine/classifier.py's train and eval step,
-search/population.py's streamed ``features``/``train_step``/``eval_step``).
+search/population.py's streamed ``features``/``train_step``/``eval_step``),
+with or without a mesh.
 
 ``capture(name, fn, generators, pool)`` warms ``fn`` up on a side stream,
 then records one call of it on that stream into a ``torch.cuda.CUDAGraph``
@@ -34,6 +35,13 @@ call added to it; the warm-up calls, whose effects are undone, add nothing.
 
 A failed capture or replay raises; nothing here falls back to eager calls.
 
+Collectives: a program that reduces over an NCCL process group (the data
+and pop groups of parallel/mesh.py) is captured with its collectives
+inside, since NCCL enqueues them on the card; ``graphable`` says which
+programs are. Each group's communicator must exist before the capture: a
+group's first collective inside a capture invalidates it, and the warm-up
+calls, which run every collective of ``fn`` once, create it.
+
 ``GRAPH_COUNTS``: captures and replays per program name since
 ``reset_graph_counts()``, which is how a run shows that it went through its
 graphs.
@@ -42,12 +50,23 @@ graphs.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 WARMUP_CALLS = 2
 
 GRAPH_COUNTS: dict = {}
 
 _REPLAY_COUNTERS: list = []
+
+
+def graphable(device, *groups):
+    """Whether the programs of ``device`` that reduce over ``groups`` are
+    CUDA graphs: on a CUDA device when every group is None or an NCCL
+    group. Gloo runs its collectives on the host, so a capture cannot hold
+    them, and a program under a gloo group (and every program on the CPU)
+    runs eagerly."""
+    return torch.device(device).type == "cuda" and all(
+        g is None or dist.get_backend(g) == "nccl" for g in groups)
 
 
 def reset_graph_counts():

@@ -25,33 +25,32 @@ The dev split is extracted once in eval mode and kept: as a bank for the
 fused epoch loop, or as a per-batch cache.
 
 The fused epoch (the JAX package's ``_PopulationPrograms.train_epoch`` /
-``eval_epoch``): with a bank, ``fused_epochs`` and no data or pop group,
-each epoch runs over static copies of the population, its Adam state
+``eval_epoch``): with a bank and ``fused_epochs``, each epoch runs over
+static copies of the population, its Adam state
 (``core/optim.py::adam_update``), both banks and the epoch's index plan and
 per-step learning rates, which the host scheduler fills as on the per-batch
-path. On a CUDA device its train steps and its dev steps are CUDA graphs
-(runtime/graphs.py), captured once per shape in a process-wide cache
-(``fused_epochs``) and replayed: one replay per epoch and phase when an
-epoch has at most MAX_GRAPH_STEPS steps. On the CPU the same step functions
-run eagerly.
+path. Its train steps and its dev steps are CUDA graphs (runtime/graphs.py)
+where the trainer is ``graphed`` (``graphs.graphable``: on a CUDA device
+with no group or NCCL ones), captured once per shape and ``BatchLayout`` in
+a process-wide cache (``fused_epochs``) and replayed: one replay per epoch
+and phase when an epoch has at most MAX_GRAPH_STEPS steps. Elsewhere (the
+CPU, a gloo group) the same step functions run eagerly.
 
-The per-batch path (no data or pop group, and no fused epoch): each train
-batch's backbone features (streamed: extracted in train mode; with a bank
-whose epochs are not fused, ``--no_fused_epochs`` or a dev split over
-MAX_DEV_BANK: gathered from it, eagerly, as the JAX package dispatches its
-``bank_gather`` on its own) and the population's ``train_step`` run once per
-batch, as the JAX package's jitted ``features`` and ``train_step`` do, and
-each dev batch's ``eval_step`` over the per-batch dev cache. On a CUDA
-device each is a CUDA graph replayed per batch: the train-mode features
-(K1 inside) captured per input shape on the trainer
-(``streamed_features``), the two steps over static copies of the
+The per-batch path (no fused epoch): each train batch's backbone features
+(streamed: extracted in train mode; with a bank whose epochs are not fused,
+``--no_fused_epochs`` or a dev split over MAX_DEV_BANK: gathered from it,
+eagerly, as the JAX package dispatches its ``bank_gather`` on its own) and
+the population's ``train_step`` run once per batch, as the JAX package's
+jitted ``features`` and ``train_step`` do, and each dev batch's
+``eval_step`` over the per-batch dev cache. Where the trainer is
+``graphed`` each is a CUDA graph replayed per batch: the train-mode
+features (K1 inside) captured per input shape and data group on the
+trainer (``streamed_features``), the two steps over static copies of the
 population, its Adam state and its learning rate in a process-wide cache
-by shape (``streamed_steps``), so a fresh population is copied in, not
-captured again. On the CPU the same functions run eagerly. Every Adam
-here is the JAX package's ``adam_update``, so the per-batch and fused
-paths step alike. The per-step loop stays eager, chosen by configuration,
-under a data or pop group (NCCL capture at world > 1 cannot be checked on
-one card, and gloo cannot be captured).
+by shape and ``BatchLayout`` (``streamed_steps``), so a fresh population is
+copied in, not captured again. Elsewhere the same functions run eagerly.
+Every Adam here is the JAX package's ``adam_update``, so the per-batch and
+fused paths step alike.
 
 Several processes (parallel/mesh.py) lay out as a (pop, data) grid. The
 ``data`` group splits every batch by rows: each rank extracts features of
@@ -66,8 +65,12 @@ rows over the data group (labels stay whole, so the epoch plans key off the
 true sample count); a batch is then read by ``gather_rows``. The ``pop``
 group splits the candidates (replicated when it does not divide them):
 every pop group trains its part on the same features, and accuracies and
-parameters are all-gathered at the end. Collectives run on the main thread,
-in step order, never on the prefetch thread.
+parameters are all-gathered at the end. A ``BatchLayout`` says how a batch
+splits; the collectives of a step (the gradients' and statistics' SUMs,
+``gather_rows``) run inside its graph, while the correct counts of a phase
+are SUMmed over the data group and all-gathered over the pop group after
+it (``_reduce_counts``). Collectives run on the main thread, in step order,
+never on the prefetch thread.
 """
 
 from __future__ import annotations
@@ -481,13 +484,47 @@ def _graph_steps(steps):
                if steps % d == 0)
 
 
-def plan_batch(bank, take, wmask, pos):
-    """Step ``pos`` ((1,) on the device) of an index plan (take, wmask),
-    gathered from ``bank``: (fa, fb, lb, la, label, wmask) float32."""
-    idx = take.index_select(0, pos)[0]
-    got = {k: v.index_select(0, idx) for k, v in bank.items()}
+@dataclass(frozen=True)
+class BatchLayout:
+    """How a population batch splits over the process groups: ``group``,
+    the data group whose rank keeps its rows of the batch (None: every rank
+    holds the whole batch); ``shards``, this rank's part of the global
+    (P, B, H) dropout mask; ``bank_group``, the data group a bank's feature
+    rows are split over (``shard_feature_bank``; None: a whole bank)."""
+    group: object = None
+    shards: tuple = ()
+    bank_group: object = None
+
+
+def gather_batch(bank, idx, wmask, layout=BatchLayout()):
+    """The batch of ``bank`` at the global row numbers ``idx`` (B,) with
+    the weights ``wmask`` (B,), both on the device: (fa, fb, lb, la, label,
+    wmask) float32, this rank's rows under ``layout.group``. A bank split
+    over ``layout.bank_group`` is read through ``gather_rows`` (its labels
+    stay whole)."""
+    rows = (None if layout.group is None
+            else pm.row_slice(idx.shape[0], layout.group))
+    if layout.bank_group is None:
+        if rows is not None:
+            idx = idx[rows]
+        got = {k: v.index_select(0, idx) for k, v in bank.items()}
+    else:
+        got = {k: (v.index_select(0, idx) if k == "label" else
+                   pm.gather_rows(v, idx, layout.bank_group))
+               for k, v in bank.items()}
+        if rows is not None:
+            got = {k: v[rows] for k, v in got.items()}
+    if rows is not None:
+        wmask = wmask[rows]
     return (*(_bank_value(got, k) for k in ("fa", "fb", "lb", "la")),
-            got["label"], wmask.index_select(0, pos)[0])
+            got["label"], wmask)
+
+
+def plan_batch(bank, take, wmask, pos, layout=BatchLayout()):
+    """Step ``pos`` ((1,) on the device) of an index plan (take, wmask),
+    gathered from ``bank`` (``gather_batch``)."""
+    return gather_batch(bank, take.index_select(0, pos)[0],
+                        wmask.index_select(0, pos)[0], layout)
 
 
 def _next(pos, steps):
@@ -495,18 +532,22 @@ def _next(pos, steps):
         torch.remainder(pos + 1, steps, out=pos)
 
 
-def fused_train_step(spec, st, generator):
+def fused_train_step(spec, st, generator, layout=BatchLayout()):
     """One train step of the fused epoch on the static state ``st``
-    (``_FusedEpochs``): the batch of plan step st["pos"], the summed loss's
-    gradients, the JAX package's Adam at etas[pos] in place, the BatchNorm
-    state, the correct counts added to st["corr"], pos advanced (wrapping
-    at the epoch's end). The same function runs eagerly and captured."""
+    (``_FusedEpochs``): the batch of plan step st["pos"] (this rank's part
+    under ``layout``), the summed loss's gradients (SUMmed over the data
+    group), the JAX package's Adam at etas[pos] in place, the BatchNorm
+    state, this rank's correct counts added to st["corr"], pos advanced
+    (wrapping at the epoch's end). The same function runs eagerly and
+    captured."""
     pos = st["pos"]
-    batch = plan_batch(st["bank"], st["take"], st["wmask"], pos)
+    batch = plan_batch(st["bank"], st["take"], st["wmask"], pos, layout)
     params = list(st["params"].values())
     loss, corrects, new_bn = population_losses(
-        spec, st["params"], st["bn"], st["conf"], batch, True, generator)
+        spec, st["params"], st["bn"], st["conf"], batch, True, generator,
+        layout.group, layout.shards)
     grads = torch.autograd.grad(loss.sum(), params)
+    pm.all_reduce_tensors(grads, layout.group)
     adam_update(params, grads, st["adam"], st["etas"].index_select(0, pos)[0],
                 spec.weight_decay)
     with torch.no_grad():
@@ -517,11 +558,13 @@ def fused_train_step(spec, st, generator):
     _next(pos, st["take"].shape[0])
 
 
-def fused_eval_step(spec, st):
+def fused_eval_step(spec, st, layout=BatchLayout()):
     """One dev step of the fused epoch: plan step st["dev_pos"] of the dev
-    bank, its correct counts added to st["dev_corr"], dev_pos advanced."""
+    bank (this rank's part under ``layout``), its correct counts added to
+    st["dev_corr"], dev_pos advanced."""
     pos = st["dev_pos"]
-    batch = plan_batch(st["dev_bank"], st["dev_take"], st["dev_wmask"], pos)
+    batch = plan_batch(st["dev_bank"], st["dev_take"], st["dev_wmask"], pos,
+                       layout)
     with torch.no_grad():
         _, corrects, _ = population_losses(spec, st["params"], st["bn"],
                                            st["conf"], batch, False)
@@ -538,14 +581,17 @@ class _FusedEpochs:
     static state ``st`` (the population's parameters, BatchNorm state and
     Adam state, its conf, copies of both banks, the train plan and its
     per-step learning rates, the dev plan, the correct counts, the plan
-    positions) and a generator of its own. ``graphed``: a CUDA graph of
+    positions) and a generator of its own. ``layouts``: the train and the
+    dev batches' ``BatchLayout`` (the process groups they split over; the
+    collectives of a step run inside it). ``graphed``: a CUDA graph of
     ``_graph_steps`` train steps and one of dev steps, captured when the
     program is built and replayed for every epoch; otherwise each step runs
-    eagerly (the plain version: the CPU's, and the card's reference in
-    chip_smoke.py)."""
+    eagerly (the plain version: the CPU's and a gloo group's, and the
+    card's reference in chip_smoke.py)."""
 
     def __init__(self, spec, params, bn_state, conf, bank, dev_bank,
-                 batch_size, dev_batch_size, *, device, graphed):
+                 batch_size, dev_batch_size, *, device, graphed,
+                 layouts=(BatchLayout(), BatchLayout())):
         self.graphed = graphed
         n, n_dev = int(bank["label"].shape[0]), int(dev_bank["label"].shape[0])
         steps = -(-n // batch_size)
@@ -578,13 +624,15 @@ class _FusedEpochs:
         self.generator = torch.Generator(device=device)
         self.chunk = (_graph_steps(steps), _graph_steps(dev_take.shape[0]))
 
+        train_layout, dev_layout = layouts
+
         def train_chunk():
             for _ in range(self.chunk[0]):
-                fused_train_step(spec, st, self.generator)
+                fused_train_step(spec, st, self.generator, train_layout)
 
         def eval_chunk():
             for _ in range(self.chunk[1]):
-                fused_eval_step(spec, st)
+                fused_eval_step(spec, st, dev_layout)
 
         if graphed:
             self._train = graphs.capture("population_train_epoch",
@@ -618,7 +666,8 @@ class _FusedEpochs:
         """One train epoch over the plan (take, wmask) at the per-step
         learning rates ``etas``, dropout drawn from ``generator``'s stream
         (its state moves on as an eager epoch would move it). Returns the
-        correct counts (P,), a static tensor the next epoch rewrites."""
+        correct counts (P,) of this rank's rows, a static tensor the next
+        epoch rewrites."""
         st = self.st
         st["take"].copy_(torch.as_tensor(take))
         st["wmask"].copy_(torch.as_tensor(wmask))
@@ -647,21 +696,24 @@ _FUSED_CACHE: dict = {}
 
 
 def fused_epochs(spec, params, bn_state, conf, bank, dev_bank, batch_size,
-                 dev_batch_size, *, device):
-    """The process-wide ``_FusedEpochs`` of these shapes (the counterpart
-    of ``population_programs(program_key=...)``), built on first use:
-    graphed on a CUDA device, eager on the CPU. It holds its own copy of
-    the banks for as long as the process runs."""
+                 dev_batch_size, *, device, graphed=None,
+                 layouts=(BatchLayout(), BatchLayout())):
+    """The process-wide ``_FusedEpochs`` of these shapes and ``layouts``
+    (the counterpart of ``population_programs(program_key=...)``), built on
+    first use: ``graphed`` (by default: on a CUDA device) or eager. It holds
+    its own copy of the banks for as long as the process runs."""
     device = torch.device(device)
+    if graphed is None:
+        graphed = device.type == "cuda"
     key = (astuple(spec), tuple((k, tuple(v.shape)) for k, v in
                                 params.items()),
            _bank_layout(bank), _bank_layout(dev_bank), batch_size,
-           dev_batch_size, str(device))
+           dev_batch_size, str(device), graphed, tuple(layouts))
     prog = _FUSED_CACHE.get(key)
     if prog is None:
         prog = _FUSED_CACHE[key] = _FusedEpochs(
             spec, params, bn_state, conf, bank, dev_bank, batch_size,
-            dev_batch_size, device=device, graphed=device.type == "cuda")
+            dev_batch_size, device=device, graphed=graphed, layouts=layouts)
     return prog
 
 
@@ -675,13 +727,16 @@ class _StreamedSteps:
     batch (``_PopulationPrograms``' bankless path). A static state ``st``
     (the population's parameters, BatchNorm state, Adam state and conf, the
     learning rate, the train and dev correct counts) and a generator of its
-    own. ``graphed``: each step a CUDA graph (runtime/graphs.py::Step, one
-    per batch shape, both in one memory pool), its batch (fa, fb, lb, la,
+    own. ``layout``: the train batches' ``BatchLayout`` (its data group's
+    collectives run inside the train step; the eval step reduces nothing).
+    ``graphed``: each step a CUDA graph (runtime/graphs.py::Step, one per
+    batch shape, both in one memory pool), its batch (fa, fb, lb, la,
     label, wmask) copied into static inputs; otherwise each step runs
-    eagerly (the plain version: the CPU's, and the card's reference in
-    chip_smoke.py)."""
+    eagerly (the plain version: the CPU's and a gloo group's, and the
+    card's reference in chip_smoke.py)."""
 
-    def __init__(self, spec, params, bn_state, conf, *, device, graphed):
+    def __init__(self, spec, params, bn_state, conf, *, device, graphed,
+                 layout=BatchLayout()):
         def zeros(t):
             return torch.zeros(t.shape, dtype=t.dtype, device=device)
 
@@ -694,7 +749,7 @@ class _StreamedSteps:
               "corr": torch.zeros((P,), device=device),
               "dev_corr": torch.zeros((P,), device=device)}
         st["adam"] = adam_init(list(st["params"].values()))
-        self.spec, self.st = spec, st
+        self.spec, self.st, self.layout = spec, st, layout
         self.generator = torch.Generator(device=device)
         if graphed:
             pool = torch.cuda.graph_pool_handle()
@@ -720,7 +775,8 @@ class _StreamedSteps:
         st = self.st
         new_bn, _, corrects = train_step(
             self.spec, st["params"], st["bn"], st["adam"], st["conf"],
-            self._batch(b), st["lr"], self.generator)
+            self._batch(b), st["lr"], self.generator, self.layout.group,
+            self.layout.shards)
         with torch.no_grad():
             if self.spec.batchnorm:
                 for k, v in new_bn.items():
@@ -754,7 +810,7 @@ class _StreamedSteps:
         """One train step on the features ``feats`` (fa, fb, lb, la) at the
         scheduler's ``lr``, dropout drawn from ``generator``'s stream (its
         state moves on as an eager step would move it); the correct counts
-        add to ``st["corr"]``."""
+        of this rank's rows add to ``st["corr"]``."""
         self.st["lr"].fill_(float(np.float32(lr)))
         self.generator.set_state(generator.get_state())
         self._train(dict(zip(_BATCH_KEYS, (*feats, label, wmask))))
@@ -781,16 +837,20 @@ class _StreamedSteps:
 _STREAMED_CACHE: dict = {}
 
 
-def streamed_steps(spec, params, bn_state, conf, *, device, graphed):
-    """The process-wide ``_StreamedSteps`` of this population shape, built
-    on first use (``graphed`` on a CUDA device, eager on the CPU)."""
+def streamed_steps(spec, params, bn_state, conf, *, device, graphed,
+                   layout=BatchLayout()):
+    """The process-wide ``_StreamedSteps`` of this population shape and
+    ``layout``, built on first use (``graphed`` on a CUDA device with no
+    group or NCCL ones, eager otherwise)."""
     device = torch.device(device)
     key = (astuple(spec), tuple((k, tuple(v.shape)) for k, v in
-                                params.items()), str(device), graphed)
+                                params.items()), str(device), graphed,
+           layout)
     prog = _STREAMED_CACHE.get(key)
     if prog is None:
         prog = _STREAMED_CACHE[key] = _StreamedSteps(
-            spec, params, bn_state, conf, device=device, graphed=graphed)
+            spec, params, bn_state, conf, device=device, graphed=graphed,
+            layout=layout)
     return prog
 
 
@@ -817,7 +877,7 @@ class PopulationTrainer:
     draw and uses the backbones' running statistics: candidate scoring only.
 
     fused_epochs: with the bank, run each epoch over an index plan with the
-    dev split as a bank too (graphed on a CUDA device without a group, see
+    dev split as a bank too (graphed where the trainer is ``graphed``, see
     the module docstring); otherwise per loader batch, with the dev split
     in a per-batch cache.
 
@@ -866,9 +926,11 @@ class PopulationTrainer:
         self._train_bank = self._train_bank_key = None
         self._dev_bank = self._dev_bank_key = None
         self._token = next(_cache_token_counter)
-        self.graphed = (self.device.type == "cuda" and group is None
-                        and pop_group is None)
-        self._train_features = None
+        self.graphed = graphs.graphable(self.device, group, pop_group)
+        # the extractor's data group (set_data_group) and its train-mode
+        # feature graphs, one graphs.Step per group
+        self._feature_group = None
+        self._train_features = {}
 
     def _section(self, name):
         return (self.timer.section(name) if self.timer is not None
@@ -896,6 +958,12 @@ class PopulationTrainer:
             shards.append((1, pm.group_rank(self.group),
                            pm.group_size(self.group)))
         return tuple(shards)
+
+    def _layout(self, batch_size, pop_split):
+        """The ``BatchLayout`` of this rank's batches of ``batch_size``."""
+        return BatchLayout(self._batch_group(batch_size),
+                           self._shards(batch_size, pop_split),
+                           self.group if self.shard_feature_bank else None)
 
     def _reduce_counts(self, counts, batch_size):
         """Per-candidate counts of this rank's rows -> the global batch's:
@@ -1094,24 +1162,13 @@ class PopulationTrainer:
         return bank
 
     def _bank_batch(self, bank, take, wmask):
-        """Gather one batch of the bank by the index row ``take``: this
-        rank's rows (all of them when replicated), from a whole bank
+        """Gather one batch of the bank by the host index row ``take``:
+        this rank's rows (all of them when replicated), from a whole bank
         directly, from a sharded one through ``gather_rows``."""
-        rows = self._rows(len(take))
-        idx = torch.as_tensor(take, dtype=torch.long, device=self.device)
-        if self.shard_feature_bank:
-            got = {k: (v.index_select(0, idx) if k == "label" else
-                       pm.gather_rows(v, idx, self.group))
-                   for k, v in bank.items()}
-            if rows is not None:
-                got = {k: v[rows] for k, v in got.items()}
-        else:
-            if rows is not None:
-                idx = idx[rows]
-            got = {k: v.index_select(0, idx) for k, v in bank.items()}
-        wmask = wmask if rows is None else wmask[rows]
-        return (*(_bank_value(got, k) for k in ("fa", "fb", "lb", "la")),
-                got["label"], torch.as_tensor(wmask, device=self.device))
+        return gather_batch(
+            bank, torch.as_tensor(take, dtype=torch.long, device=self.device),
+            torch.as_tensor(wmask, device=self.device),
+            self._layout(len(take), False))
 
     def _bank_batches(self, bank, batch_size, shuffle_rs):
         """Batches gathered from the bank under a fresh host shuffle, with
@@ -1136,34 +1193,30 @@ class PopulationTrainer:
                 feats = self.streamed_features(inputs)
             yield feats, label, wmask
 
-    def _step(self, params, bn_state, adam, conf, batch, eta, batch_size,
-              pop_split):
-        with self._section("population steps"):
-            return train_step(self.spec, params, bn_state, adam, conf, batch,
-                              eta, self.generator,
-                              self._batch_group(batch_size),
-                              self._shards(batch_size, pop_split))
+    def _set_feature_group(self, group):
+        """The data group the train-mode features' batch statistics and
+        dropout masks are those of (``set_data_group`` on the extractor)."""
+        self._feature_group = group
+        set_data_group(self.extractor, group)
 
     def streamed_features(self, inputs):
         """The train-mode features of one placed batch: when
         ``self.graphed`` a replay of ``_features(inputs, True)`` captured
-        once per input shape (the extractor and the generator are this
-        trainer's; the graph holds the trainer weakly, so both go with its
-        last user)."""
+        once per input shape and data group (the extractor and the
+        generator are this trainer's; the graph holds the trainer weakly,
+        so both go with its last user). Under an NCCL data group the
+        graph holds the synced BatchNorms' all-reduces."""
         if not self.graphed:
             return self._features(inputs, True)
-        if self._train_features is None:
+        step = self._train_features.get(self._feature_group)
+        if step is None:
             trainer = weakref.proxy(self)
-            self._train_features = graphs.Step(
+            step = self._train_features[self._feature_group] = graphs.Step(
                 "population_features",
                 lambda b: trainer._features(
                     tuple(b[k] for k in sorted(b)), True),
                 generators=[self.generator])
-        return self._train_features({str(i): x for i, x in enumerate(inputs)})
-
-    def _eval(self, params, bn_state, conf, batch):
-        with self._section("population steps"):
-            return eval_step(self.spec, params, bn_state, conf, batch)[1]
+        return step({str(i): x for i, x in enumerate(inputs)})
 
     def train_population(self, confs, dataloaders, dataset_sizes, scheduler,
                          num_epochs, input_keys, label_key="label", seed=0,
@@ -1192,7 +1245,6 @@ class PopulationTrainer:
             bn_state = {k: v[mine].clone() for k, v in bn_state.items()}
         conf = conf_tensors(confs[mine] if pop_split else confs, spec,
                             self.device)
-        adam = adam_init(list(params.values()))
         self.generator.manual_seed(seed + 1)
 
         bank = None
@@ -1223,15 +1275,19 @@ class PopulationTrainer:
 
         bs = dataloaders["train"].batch_size
         dev_bs = dataloaders["dev"].batch_size
+        layout = self._layout(bs, pop_split)
+        self._set_feature_group(layout.group)
         use_fused = (bank is not None and self.fused_epochs
                      and dataset_sizes.get("dev", 0) <= self.MAX_DEV_BANK)
         if use_fused:
             dev_bank = self._cached_bank("dev", dataloaders["dev"],
                                          input_keys, label_key)
             n_train = int(bank["label"].shape[0])
-        if use_fused and self.group is None and self.pop_group is None:
             prog = fused_epochs(spec, params, bn_state, conf, bank, dev_bank,
-                                bs, dev_bs, device=self.device)
+                                bs, dev_bs, device=self.device,
+                                graphed=self.graphed,
+                                layouts=(layout,
+                                         self._layout(dev_bs, False)))
             keys = (self._train_bank_key, self._dev_bank_key)
             prog.load(params, bn_state, conf, bank, dev_bank,
                       None if None in keys else (self._token, *keys))
@@ -1244,30 +1300,11 @@ class PopulationTrainer:
                     dev = prog.eval_epoch()
                 record("train", [tr], bs)
                 best = np.maximum(best, record("dev", [dev], dev_bs))
-            params, bn_state = prog.state()
-        elif use_fused:
-            dev_plan = self._epoch_index_plan(
-                int(dev_bank["label"].shape[0]), dev_bs)
-            for epoch in range(num_epochs):
-                take, wm = self._epoch_index_plan(n_train, bs, bank_rs)
-                # the scheduler steps exactly as on the per-batch path
-                etas = [scheduler.step() for _ in range(take.shape[0])]
-                tr = []
-                for take_s, wm_s, eta in zip(take, wm, etas):
-                    bn_state, _, corr = self._step(
-                        params, bn_state, adam, conf,
-                        self._bank_batch(bank, take_s, wm_s), eta, bs,
-                        pop_split)
-                    tr.append(corr)
-                dev = [self._eval(params, bn_state, conf,
-                                  self._bank_batch(dev_bank, t, w))
-                       for t, w in zip(*dev_plan)]
-                record("train", tr, bs)
-                best = np.maximum(best, record("dev", dev, dev_bs))
-        elif self.group is None and self.pop_group is None:
+        else:
             # the per-batch programs (graphed on the card)
             prog = streamed_steps(spec, params, bn_state, conf,
-                                  device=self.device, graphed=self.graphed)
+                                  device=self.device, graphed=self.graphed,
+                                  layout=layout)
             prog.load(params, bn_state, conf)
             for epoch in range(num_epochs):
                 n = 0
@@ -1287,30 +1324,7 @@ class PopulationTrainer:
                     n += 1
                 best = np.maximum(best, record(
                     "dev", [prog.counts("dev_corr")] if n else [], dev_bs))
-            params, bn_state = prog.state()
-        else:
-            set_data_group(self.extractor, self._batch_group(bs))
-            for epoch in range(num_epochs):
-                for phase in ("train", "dev"):
-                    terms = []
-                    if phase == "train":
-                        for feats, label, wmask in self._train_batches(
-                                bank, dataloaders[phase], bank_rs,
-                                input_keys, label_key):
-                            bn_state, _, corr = self._step(
-                                params, bn_state, adam, conf,
-                                (*feats, label, wmask), scheduler.step(),
-                                bs, pop_split)
-                            terms.append(corr)
-                    else:
-                        for batch in self._dev_batches(
-                                dataloaders["dev"], input_keys, label_key):
-                            terms.append(self._eval(params, bn_state, conf,
-                                                    batch))
-                    acc = record(phase, terms,
-                                 bs if phase == "train" else dev_bs)
-                    if phase == "dev":
-                        best = np.maximum(best, acc)
+        params, bn_state = prog.state()
 
         if pop_split:
             params = {k: pm.all_gather_rows(v.detach(), self.pop_group)

@@ -1,16 +1,17 @@
 """The port's per-batch step programs (runtime/graphs.py::Step) on the CPU,
 through an eager stand-in for the CUDA graph.
 
-The stand-in (``eager_graphs``) replaces ``graphs._record``: it makes the
-warm-up calls and the captured call as a capture would, then reruns the
-captured function at every replay, writing its results into the tensors
-the captured call returned and holding the replay counters (a replay reruns
-kernels, not the Python that counts them). Everything else is the code the
-card runs: the signature cache, the static inputs, the resident tensors
-passed through, the state put back after the warm-up, the cloned outputs,
-the counters that advance per replay, the engines' and the population
-trainer's graphed entries. A test that forces ``graphed`` on a CPU engine
-or trainer thus runs the card's bookkeeping with the CPU's arithmetic.
+The stand-in (``eager_graphs``, tests/torch_graph_stand_in.py) replaces
+``graphs._record``: it makes the warm-up calls and the captured call as a
+capture would, then reruns the captured function at every replay, writing
+its results into the tensors the captured call returned and holding the
+replay counters (a replay reruns kernels, not the Python that counts them).
+Everything else is the code the card runs: the signature cache, the static
+inputs, the resident tensors passed through, the state put back after the
+warm-up, the cloned outputs, the counters that advance per replay, the
+engines' and the population trainer's graphed entries. A test that forces
+``graphed`` on a CPU engine or trainer thus runs the card's bookkeeping
+with the CPU's arithmetic.
 
 * ``Step``: one capture per batch signature, the static inputs reused by
   every replay, the caller's tensors never read by the graph, resident
@@ -52,6 +53,7 @@ from mfas_tpu_torch.runtime import graphs
 from mfas_tpu_torch.search import population as tpop
 from tests import test_torch_found_ntu_train as ntu_train
 from tests.test_torch_found_ntu_train import fx  # noqa: F401
+from tests.torch_graph_stand_in import eager_graphs  # noqa: F401
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -62,41 +64,6 @@ def one_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
-
-
-class _Rerun:
-    """The stand-in's graph: ``replay()`` reruns the captured function
-    into the tensors its captured call returned."""
-
-    def __init__(self, fn, out):
-        self.fn, self.out = fn, out
-
-    def replay(self):
-        held = [(c, dict(c)) for c in graphs._REPLAY_COUNTERS]
-        new = self.fn()
-        for c, v in held:
-            graphs._restore(c, v)
-        with torch.no_grad():
-            for o, n in zip(self.out, new):
-                o.copy_(n)
-
-
-def _eager_record(fn, generators, pool, mark):
-    for _ in range(graphs.WARMUP_CALLS):
-        fn()
-    mark()
-    out = fn()
-    return _Rerun(fn, out), out
-
-
-@pytest.fixture
-def eager_graphs(monkeypatch):
-    """graphs.capture on the CPU (module docstring); yields GRAPH_COUNTS."""
-    monkeypatch.setattr(graphs, "_record", _eager_record)
-    monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: None)
-    graphs.reset_graph_counts()
-    yield graphs.GRAPH_COUNTS
-    graphs.reset_graph_counts()
 
 
 def force_graphed(monkeypatch, remat=False):

@@ -12,6 +12,7 @@ The parent compares the results with the JAX package.
 
 from __future__ import annotations
 
+import copy
 import os
 import pickle
 import types
@@ -284,8 +285,8 @@ def cifar_engine_step(inp, group):
     set_trainable(net, None)
     net.train()
     opt = eng.make_optimizer()
-    loss, _ = eng._train_step(place_batch(inp["batch"], "cpu", group), opt,
-                              inp["lr"])
+    loss, _ = eng.train_step(place_batch(inp["batch"], "cpu", group), opt,
+                             inp["lr"])
     return {"loss": float(pm.reduce_sum(loss, group)), "after": _state(net),
             "grads": {n: _np(p.grad) for n, p in net.named_parameters()
                       if p.grad is not None}}
@@ -293,6 +294,35 @@ def cifar_engine_step(inp, group):
 
 def case_engine_cifar(inp, tmp):
     return cifar_engine_step(inp["cifar"], _world())
+
+
+def mmimdb_padded_run(group):
+    """MMIMDBEngine over tests/test_torch_cuda_graph_leftovers.py's
+    padded-sequence net: train steps alternating text lengths 8 and 16
+    (this rank's rows of 4), then an eval step of each length (the logits
+    all-gathered)."""
+    from mfas_tpu_torch import main_found_mmimdb as tmmain
+    from mfas_tpu_torch.engine.classifier import place_batch, set_trainable
+    from mfas_tpu_torch.engine.mmimdb import MMIMDBEngine
+    from tests.test_torch_cuda_graph_leftovers import (PaddedNet,
+                                                       padded_batches)
+
+    net = PaddedNet(tmmain.parse_args([]), "cpu",
+                    torch.Generator().manual_seed(0))
+    eng = MMIMDBEngine(net, "cpu", group=group)
+    eng.generator.manual_seed(3)
+    set_trainable(net, None)
+    net.train()
+    opt = eng.make_optimizer()
+    batches = [place_batch({k: v.numpy() for k, v in b.items()}, "cpu",
+                           group)
+               for b in padded_batches((8, 16, 8, 16), "cpu")]
+    losses = [_np(eng.train_step(b, opt, 1e-2)[0]) for b in batches]
+    net.eval()
+    evals = [eng.eval_step(b) for b in batches[:2]]
+    return {"losses": losses, "state": _state(net),
+            "logits": [_np(o) for o, _ in evals],
+            "preds": [_np(p) for _, p in evals]}
 
 
 # --------------------------------------------------------------------------
@@ -412,6 +442,43 @@ def found_avmnist_cli(argv, flat):
 
 def case_cli_avmnist(inp, tmp):
     return found_avmnist_cli(inp["argv"], inp["flat"])
+
+
+# --------------------------------------------------------------------------
+# the graphed steps under a group (tests/test_torch_group_graphs.py)
+# --------------------------------------------------------------------------
+def eager_and_graphed(run):
+    """``run()`` eagerly (gloo: the programs' own choice), then with every
+    engine and trainer forced onto its graphed entries through the eager
+    stand-in of the CUDA graphs (tests/torch_graph_stand_in.py): {"eager":
+    ..., "graphed": ..., "counts": the graphed run's GRAPH_COUNTS}."""
+    from mfas_tpu_torch.runtime import graphs
+    from tests.torch_graph_stand_in import eager_capture
+
+    graphs.reset_graph_counts()
+    eager = run()
+    eager_counts = dict(graphs.GRAPH_COUNTS)
+    with eager_capture(force=True) as counts:
+        graphed = run()
+        counts = {k: dict(v) for k, v in counts.items()}
+    return {"eager": eager, "graphed": graphed, "counts": counts,
+            "eager_counts": eager_counts}
+
+
+def case_group_graphs_engines(inp, tmp):
+    g = _world()
+    return {"avmnist": eager_and_graphed(lambda: avmnist_engine_run(inp, g)),
+            # a fixed-mode net doubles its args' planes: fresh args each
+            "cifar": eager_and_graphed(
+                lambda: cifar_engine_step(copy.deepcopy(inp["cifar"]), g)),
+            "mmimdb": eager_and_graphed(lambda: mmimdb_padded_run(g))}
+
+
+def case_group_graphs_population(inp, tmp):
+    pop_group, data_group = pm.pop_data_groups(2, 2)
+    return {v: eager_and_graphed(
+        lambda: population_run(inp, v, data_group, pop_group))
+        for v in inp["variants"]}
 
 
 CASES = {name[len("case_"):]: fn for name, fn in globals().items()
