@@ -18,6 +18,8 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from mfas_tpu_torch.runtime.profiler import span
+
 
 class ResumableRng:
     """Shuffle/seed-stream RNG checkpointing shared by the loaders."""
@@ -103,7 +105,9 @@ def _drain(q):
 def prefetch_to_device(iterator, place, size=2):
     """Host collation and the host->device copy of batch N+1 run on a
     background thread while the consumer runs batch N; ``place(batch)``
-    maps a host batch to what the consumer receives."""
+    maps a host batch to what the consumer receives. The consumer's every
+    wait for a batch, the new thread's first one included, is the host-only
+    span "loader.wait" (runtime/profiler.py::span)."""
     q: queue.Queue = queue.Queue(maxsize=max(1, size))
     stop = threading.Event()
 
@@ -122,7 +126,8 @@ def prefetch_to_device(iterator, place, size=2):
     t.start()
     try:
         while True:
-            item = q.get()
+            with span("loader.wait", host_only=True):
+                item = q.get()
             if item is None:
                 return
             kind, payload = item

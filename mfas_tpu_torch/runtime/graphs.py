@@ -44,13 +44,17 @@ calls, which run every collective of ``fn`` once, create it.
 
 ``GRAPH_COUNTS``: captures and replays per program name since
 ``reset_graph_counts()``, which is how a run shows that it went through its
-graphs.
+graphs. Each capture, its warm-up calls included, is the span
+"graphs.capture" (runtime/profiler.py::span), inside whatever span asked
+for it.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.distributed as dist
+
+from mfas_tpu_torch.runtime.profiler import span
 
 WARMUP_CALLS = 2
 
@@ -141,6 +145,11 @@ def capture(name, fn, generators=(), pool=None, warmed=None):
     """``fn()`` warmed up and captured (see the module docstring);
     ``warmed()``, when given, is called between the warm-up and the
     capture."""
+    with span("graphs.capture"):
+        return _capture(name, fn, generators, pool, warmed)
+
+
+def _capture(name, fn, generators, pool, warmed):
     counters = list(_REPLAY_COUNTERS)
     before = [dict(c) for c in counters]
     at_capture = []

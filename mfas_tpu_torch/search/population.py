@@ -94,6 +94,7 @@ from mfas_tpu_torch.data.loader import prefetch_to_device, to_device
 from mfas_tpu_torch.fusion.layers import shared_weight_key
 from mfas_tpu_torch.parallel import mesh as pm
 from mfas_tpu_torch.runtime import graphs
+from mfas_tpu_torch.runtime.profiler import span
 
 # process-wide token source for the loader-keyed feature caches (never
 # reused, unlike id() after garbage collection)
@@ -1225,34 +1226,17 @@ class PopulationTrainer:
         params, bn_state), the whole population's on every rank.
 
         shared_state_dict: optional weight-sharing store, injected before
-        training and extracted from the final population state after."""
+        training and extracted from the final population state after.
+
+        Spans (runtime/profiler.py::span): "population.setup", everything
+        before the first epoch and the state taken out after the last;
+        "population.readback", each phase's accuracies read to the host."""
         spec = self.spec
-        params, bn_state = init_population(confs, spec, seed,
-                                           device=self.device)
-        if shared_state_dict is not None:
-            params, bn_state = inject_shared_states(
-                params, bn_state, confs, spec, shared_state_dict,
-                verbose=verbose)
         P = len(confs)
         pop = pm.group_size(self.pop_group)
         pop_split = pop > 1 and P % pop == 0
-        if pop_split:
-            # this pop group's candidates (a population the pop axis does
-            # not divide trains whole in every pop group)
-            mine = pm.row_slice(P, self.pop_group)
-            params = {k: v.detach()[mine].clone().requires_grad_()
-                      for k, v in params.items()}
-            bn_state = {k: v[mine].clone() for k, v in bn_state.items()}
-        conf = conf_tensors(confs[mine] if pop_split else confs, spec,
-                            self.device)
-        self.generator.manual_seed(seed + 1)
-
-        bank = None
-        if self.cache_train_features:
-            bank = self._cached_bank("train", dataloaders["train"],
-                                     input_keys, label_key)
-        bank_rs = np.random.RandomState(seed + 17)
-        best = np.zeros((P,))
+        bs = dataloaders["train"].batch_size
+        dev_bs = dataloaders["dev"].batch_size
 
         def record(phase, terms, batch_size):
             if not terms:
@@ -1262,35 +1246,66 @@ class PopulationTrainer:
                     "needs at least one batch per split")
             # one reduction and one device->host copy per phase; float32
             # like the JAX package's accuracies
-            counts = self._reduce_counts(torch.stack(terms).sum(0),
-                                         batch_size)
-            if pop_split:
-                counts = pm.all_gather_rows(counts, self.pop_group)
-            acc = counts.float().cpu().numpy() / np.float32(
-                dataset_sizes[phase])
+            with span("population.readback"):
+                counts = self._reduce_counts(torch.stack(terms).sum(0),
+                                             batch_size)
+                if pop_split:
+                    counts = pm.all_gather_rows(counts, self.pop_group)
+                acc = counts.float().cpu().numpy() / np.float32(
+                    dataset_sizes[phase])
             if verbose:
                 print("{} population acc: mean {:.4f} max {:.4f}".format(
                     phase, acc.mean(), acc.max()))
             return acc
 
-        bs = dataloaders["train"].batch_size
-        dev_bs = dataloaders["dev"].batch_size
-        layout = self._layout(bs, pop_split)
-        self._set_feature_group(layout.group)
-        use_fused = (bank is not None and self.fused_epochs
-                     and dataset_sizes.get("dev", 0) <= self.MAX_DEV_BANK)
-        if use_fused:
-            dev_bank = self._cached_bank("dev", dataloaders["dev"],
+        with span("population.setup"):
+            params, bn_state = init_population(confs, spec, seed,
+                                               device=self.device)
+            if shared_state_dict is not None:
+                params, bn_state = inject_shared_states(
+                    params, bn_state, confs, spec, shared_state_dict,
+                    verbose=verbose)
+            if pop_split:
+                # this pop group's candidates (a population the pop axis
+                # does not divide trains whole in every pop group)
+                mine = pm.row_slice(P, self.pop_group)
+                params = {k: v.detach()[mine].clone().requires_grad_()
+                          for k, v in params.items()}
+                bn_state = {k: v[mine].clone() for k, v in bn_state.items()}
+            conf = conf_tensors(confs[mine] if pop_split else confs, spec,
+                                self.device)
+            self.generator.manual_seed(seed + 1)
+
+            bank = None
+            if self.cache_train_features:
+                bank = self._cached_bank("train", dataloaders["train"],
                                          input_keys, label_key)
-            n_train = int(bank["label"].shape[0])
-            prog = fused_epochs(spec, params, bn_state, conf, bank, dev_bank,
-                                bs, dev_bs, device=self.device,
-                                graphed=self.graphed,
-                                layouts=(layout,
-                                         self._layout(dev_bs, False)))
-            keys = (self._train_bank_key, self._dev_bank_key)
-            prog.load(params, bn_state, conf, bank, dev_bank,
-                      None if None in keys else (self._token, *keys))
+            bank_rs = np.random.RandomState(seed + 17)
+            best = np.zeros((P,))
+            layout = self._layout(bs, pop_split)
+            self._set_feature_group(layout.group)
+            use_fused = (bank is not None and self.fused_epochs
+                         and dataset_sizes.get("dev", 0)
+                         <= self.MAX_DEV_BANK)
+            if use_fused:
+                dev_bank = self._cached_bank("dev", dataloaders["dev"],
+                                             input_keys, label_key)
+                n_train = int(bank["label"].shape[0])
+                prog = fused_epochs(spec, params, bn_state, conf, bank,
+                                    dev_bank, bs, dev_bs, device=self.device,
+                                    graphed=self.graphed,
+                                    layouts=(layout,
+                                             self._layout(dev_bs, False)))
+                keys = (self._train_bank_key, self._dev_bank_key)
+                prog.load(params, bn_state, conf, bank, dev_bank,
+                          None if None in keys else (self._token, *keys))
+            else:
+                # the per-batch programs (graphed on the card)
+                prog = streamed_steps(spec, params, bn_state, conf,
+                                      device=self.device,
+                                      graphed=self.graphed, layout=layout)
+                prog.load(params, bn_state, conf)
+        if use_fused:
             for epoch in range(num_epochs):
                 take, wm = self._epoch_index_plan(n_train, bs, bank_rs)
                 # the scheduler steps exactly as on the per-batch path
@@ -1301,11 +1316,6 @@ class PopulationTrainer:
                 record("train", [tr], bs)
                 best = np.maximum(best, record("dev", [dev], dev_bs))
         else:
-            # the per-batch programs (graphed on the card)
-            prog = streamed_steps(spec, params, bn_state, conf,
-                                  device=self.device, graphed=self.graphed,
-                                  layout=layout)
-            prog.load(params, bn_state, conf)
             for epoch in range(num_epochs):
                 n = 0
                 for feats, label, wmask in self._train_batches(
@@ -1324,14 +1334,15 @@ class PopulationTrainer:
                     n += 1
                 best = np.maximum(best, record(
                     "dev", [prog.counts("dev_corr")] if n else [], dev_bs))
-        params, bn_state = prog.state()
 
-        if pop_split:
-            params = {k: pm.all_gather_rows(v.detach(), self.pop_group)
-                      for k, v in params.items()}
-            bn_state = {k: pm.all_gather_rows(v, self.pop_group)
-                        for k, v in bn_state.items()}
-        if shared_state_dict is not None:
-            extract_shared_states(params, bn_state, confs, spec,
-                                  shared_state_dict, verbose=verbose)
+        with span("population.setup"):
+            params, bn_state = prog.state()
+            if pop_split:
+                params = {k: pm.all_gather_rows(v.detach(), self.pop_group)
+                          for k, v in params.items()}
+                bn_state = {k: pm.all_gather_rows(v, self.pop_group)
+                            for k, v in bn_state.items()}
+            if shared_state_dict is not None:
+                extract_shared_states(params, bn_state, confs, spec,
+                                      shared_state_dict, verbose=verbose)
         return [float(a) for a in best], params, bn_state

@@ -40,9 +40,9 @@ class ModelSearcher:
     def search(self):
         raise NotImplementedError
 
-    def _section(self, name):
-        return (self.timer.section(name) if self.timer is not None
-                else contextlib.nullcontext())
+    def _section(self, name, host_only=False):
+        return (self.timer.section(name, host_only)
+                if self.timer is not None else contextlib.nullcontext())
 
     def _log_event(self, **event):
         if self._jsonl and is_primary_process():
@@ -166,7 +166,7 @@ class ModelSearcher:
                         progression_index, self.args.max_progression_levels))
 
                 # 1-2. unfold this fusion level and merge with the top-K
-                with self._section("sampler"):
+                with self._section("sampler", host_only=True):
                     list_possible_layer_confs = \
                         get_possible_layer_configurations(progression_index)
                     all_configurations = tools.merge_unfolded_with_sampled(
@@ -199,7 +199,7 @@ class ModelSearcher:
 
                 # 4. temperature-sample K; train them for real when scored
                 #    by the surrogate, then refresh the surrogate
-                with self._section("sampler"):
+                with self._section("sampler", host_only=True):
                     sampled_k_confs = tools.sample_k_configurations(
                         all_configurations, all_accuracies,
                         self.args.num_samples, temperature)
@@ -282,7 +282,7 @@ class ModelSearcher:
                 print(50 * "=")
                 print("Random Search iteration {}/{} ".format(si, total))
 
-            with self._section("sampler"):
+            with self._section("sampler", host_only=True):
                 sampled_k_confs = tools.sample_k_configurations_directly(
                     self.args.num_samples, self.args.max_progression_levels,
                     get_possible_layer_configurations)

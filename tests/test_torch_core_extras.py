@@ -4,9 +4,8 @@ AdaptiveAvgPool2d, GlobalPooling1D, Flatten, AlphaVectorMultiplication,
 ParamList, Activ with its learned-beta Swish), core/functional.py
 (avg_pool3d, global_avg_pool1d, mse), core/init.py (ones,
 torch_default_weight, hcn_conv_weight, orthogonal: the same distribution,
-since the packages draw from different generators) and
-runtime/profiler.py::StepTimer. Values and input gradients within 1e-5 of
-the reference's max.
+since the packages draw from different generators). Values and input
+gradients within 1e-5 of the reference's max.
 """
 
 import math
@@ -22,11 +21,9 @@ from mfas_tpu.core import Ctx, flatten_tree
 from mfas_tpu.core import functional as JF
 from mfas_tpu.core import init as JI
 from mfas_tpu.core import layers as JL
-from mfas_tpu.runtime import profiler as JP
 from mfas_tpu_torch.core import functional as TF
 from mfas_tpu_torch.core import init as TI
 from mfas_tpu_torch.core import layers as TL
-from mfas_tpu_torch.runtime import profiler as TP
 from mfas_tpu_torch.runtime.checkpoint import state_dict_from_numpy
 
 TOL = 1e-5
@@ -211,17 +208,3 @@ def test_orthogonal_matches_jax_structure(shape):
         np.testing.assert_allclose(gram, np.eye(gram.shape[0]), atol=1e-5)
     with pytest.raises(ValueError, match="2D"):
         TI.orthogonal(torch.Generator(), (5,), "cpu")
-
-
-def test_step_timer_matches_jax():
-    times = [0.3, 0.1, 0.2, 0.5, 0.4]
-    j, t = JP.StepTimer(), TP.StepTimer("cpu")
-    assert j.summary() == t.summary() == {}
-    j.times, t.times = list(times), list(times)
-    assert t.summary() == j.summary()
-    t = TP.StepTimer()
-    for _ in range(3):
-        t.start()
-        t.stop()
-    s = t.summary()
-    assert s["steps"] == 3 and 0.0 <= s["p50_s"] <= s["p95_s"]

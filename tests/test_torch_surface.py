@@ -51,6 +51,10 @@ NO_COUNTERPART = {
         "chunked_device_put": "the MFAS_H2D_CHUNKS experiment: the port "
                               "copies a batch once, from pinned memory",
     },
+    "runtime/profiler.py": {
+        "StepTimer": "nothing in the port read it; spans (span, "
+                     "SectionTimer) time the port's runs under a profiler",
+    },
 }
 
 
