@@ -23,7 +23,17 @@
    never calls it), first checked against K1's plain version (f32 within
    1e-6 of its max |value|, bf16 within one bf16 ulp; library_err); prints
    the kernel rule's verdict, K1 against the call and each kernel's share
-   of its bound;
+   of its bound; then the fused BatchNorm (bn_kernel_phase,
+   ops/batchnorm.py, csrc/batchnorm.cu) against its plain version at the
+   found net's channels-last layer1 and layer3 bn3 shapes (residual + ReLU)
+   and AV-MNIST's 14x14 LeNet stage (ReLU), f32 and bf16, train mode,
+   forward and backward, and its time beside the plain version's,
+   F.batch_norm + add + ReLU's and the least time from bytes. Phases 7, 10
+   and 12 (found-NTU training, the NTU searches, AV-MNIST's found training
+   and search) check, run by run, that the BatchNorm kernels' launch counts
+   are what a tally of the BatchNorm calls on the card gives, replays
+   included (bn_path); phase 15's predicts that an artifact exported on the
+   card runs them, once per recorded op node and batch;
 6. the found-NTU --test_cp slice end to end at full width (ResNet-50 3-4-6-3
    at base width 64, HCN over 32 frames, found conf 4, random weights from a
    seed): a synthetic packed store at 256x256 (24 frames, 300 skeleton
@@ -490,6 +500,231 @@ def kernel_phases(torch, tk):
     print("kernel_times_ms " + json.dumps(ms))
     card_state("after kernel times")
     return err, ms
+
+
+# the fused BatchNorm's cases: (shape, channels-last, residual), the found
+# NTU net's layer1 and layer3 bn3 at B=20, 8 frames of 256 px, and
+# AV-MNIST's 14x14 LeNet stage at B=128; its epilogue is ReLU throughout
+BN_CASES = {"r50_l1_bn3": ((20, 256, 8, 64, 64), True, True),
+            "r50_l3_bn3": ((20, 1024, 8, 16, 16), True, True),
+            "lenet_14": ((128, 64, 14, 14), False, False)}
+# the forward's error against float64 may exceed the plain version's by
+# half again and this much of the largest magnitude (a bf16 ulp at 1,
+# f32's rounding); the backward's lies within BN_TOL_BWD of float64's
+BN_FLOOR_FWD = {"f32": 1e-6, "bf16": 2.0 ** -8}
+BN_TOL_BWD = {"f32": 1e-4, "bf16": 2e-2}
+
+
+def _bn_rel(a, ref):
+    ref = ref.double()
+    return float((a.double() - ref).abs().max() / ref.abs().max())
+
+
+def bn_kernel_phase(torch, tbn):
+    """The fused BatchNorm (ops/batchnorm.py::batch_norm) against its plain
+    version on the card at BN_CASES, f32 and bf16, train mode, forward and
+    backward: the output no further from float64's than the plain
+    version's, give or take rounding (BN_FLOOR_FWD); the running
+    statistics within 1e-5 of the plain version's; dx, dweight and dbias
+    within BN_TOL_BWD of the float64 closed form under the kernels' own
+    ReLU mask and rounded statistics; the residual's gradient exactly dy
+    where the output is positive; one launch of each kernel. Then each
+    case's time, forward + backward, under the spin timer: the kernels,
+    the plain version and torch.nn.functional.batch_norm + add + ReLU (the
+    library's yardstick, called nowhere in the port), beside the least
+    time from bytes at 3.35 TB/s (x, residual and y forward; dy, x, y, dx
+    and the residual's gradient backward). -> (errors, times) by
+    "<case>.<dtype>"."""
+    phase("fused BatchNorm vs plain")
+    dev = torch.device("cuda")
+    errs, times = {}, {}
+    for case, (shape, cl, with_res) in BN_CASES.items():
+        for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            g = torch.Generator(device=dev).manual_seed(SEED)
+            C = shape[1]
+            cshape = [1, C] + [1] * (len(shape) - 2)
+            fmt = torch.contiguous_format
+            if cl:
+                fmt = (torch.channels_last_3d if len(shape) == 5
+                       else torch.channels_last)
+            scale = torch.rand(cshape, generator=g, device=dev) * 2 + 0.25
+            off = torch.randn(cshape, generator=g, device=dev)
+            x, res, dy = (t.to(dt).contiguous(memory_format=fmt) for t in (
+                torch.randn(shape, generator=g, device=dev) * scale + off,
+                torch.randn(shape, generator=g, device=dev),
+                torch.randn(shape, generator=g, device=dev)))
+            if not with_res:
+                res = None
+            w = torch.rand(C, generator=g, device=dev) + 0.5
+            b = torch.randn(C, generator=g, device=dev) * 0.1
+
+            def state(dtype):
+                return [torch.zeros(C, dtype=dtype, device=dev),
+                        torch.ones(C, dtype=dtype, device=dev),
+                        torch.zeros((), dtype=torch.long, device=dev)]
+
+            def leaves(xs, ws, bs, rs):
+                return [t.detach().clone().requires_grad_()
+                        for t in (xs, ws, bs, rs) if t is not None]
+
+            def call(fn, ls, st, rs):
+                return fn(ls[0], ls[1], ls[2], *st, training=True,
+                          momentum=0.1, eps=1e-5,
+                          residual=ls[3] if rs is not None else None,
+                          relu=True)
+
+            def run(fn, xs, ws, bs, rs, dys, st):
+                ls = leaves(xs, ws, bs, rs)
+                y = call(fn, ls, st, rs)
+                return y.detach(), torch.autograd.grad(y, ls, dys)
+
+            what = f"BN {case} {tuple(shape)} {name}"
+            tbn.reset_launch_counts()
+            sk = state(torch.float32)
+            yk, gk = run(tbn.batch_norm, x, w, b, res, dy, sk)
+            torch.cuda.synchronize()
+            check(tbn.launch_counts == {k: 1 for k in tbn.launch_counts},
+                  f"{what}: launches {tbn.launch_counts}")
+            sp = state(torch.float32)
+            yp, _ = run(tbn.batch_norm_plain, x, w, b, res, dy, sp)
+            s64 = state(torch.float64)
+            y64, _ = run(tbn.batch_norm_plain, x.double(), w.double(),
+                         b.double(), None if res is None else res.double(),
+                         dy.double(), s64)
+            e_fwd, e_plain = _bn_rel(yk, y64), _bn_rel(yp, y64)
+            check(e_fwd <= 1.5 * e_plain + BN_FLOOR_FWD[name],
+                  f"{what}: forward {e_fwd:.3e} from float64, the plain "
+                  f"version {e_plain:.3e}")
+            e_run = max(_bn_rel(a, c) for a, c in zip(sk[:2], sp[:2]))
+            check(e_run <= 1e-5 and int(sk[2]) == int(sp[2]) == 1,
+                  f"{what}: running statistics {e_run:.3e} from the plain "
+                  "version's")
+            del y64, yp
+            x64 = x.double()
+            mean, var, n, clamped = tbn.batch_statistics_plain(x64)
+            mean = mean.to(dt).double()
+            inv = torch.rsqrt(var.to(dt).double() + 1e-5).to(dt).double()
+            want = tbn.batch_norm_backward_plain(
+                dy.double(), x64, yk.double(), mean, inv,
+                w.to(dt).double(), n, clamped, training=True, relu=True)
+            e_bwd = max(_bn_rel(a, c) for a, c in zip(gk[:3], want[:3]))
+            check(e_bwd <= BN_TOL_BWD[name],
+                  f"{what}: dx, dweight, dbias {e_bwd:.3e} from float64")
+            if with_res:
+                check(torch.equal(gk[3], torch.where(
+                    yk <= 0, torch.zeros_like(dy), dy)),
+                      f"{what}: the residual's gradient is not dy masked "
+                      "by the output")
+            del x64, want, gk, yk
+            free_card(torch)
+            errs[f"{case}.{name}"] = {"fwd": e_fwd, "plain_fwd": e_plain,
+                                      "running_stats": e_run, "bwd": e_bwd}
+
+            def library(xs, ws, bs, rm, rv, nbt, *, training, momentum, eps,
+                        residual, relu):
+                y = torch.nn.functional.batch_norm(xs, rm, rv, ws, bs,
+                                                   training, momentum, eps)
+                return torch.relu(y if residual is None else y + residual)
+
+            ls = leaves(x, w, b, res)
+            st = state(torch.float32)
+            t = {}
+            for key, fn in (("ms", tbn.batch_norm),
+                            ("plain_ms", tbn.batch_norm_plain),
+                            ("library_ms", library)):
+                t[key] = time_ms(torch, lambda fn=fn: torch.autograd.grad(
+                    call(fn, ls, st, res), ls, dy), "spin")
+            moved = (8 if with_res else 6) * x.numel() * x.element_size()
+            t["bound_ms"] = moved / 3.35e12 * 1e3
+            times[f"{case}.{name}"] = t
+            print(f"{what}: forward {e_fwd:.2e} from float64 (plain "
+                  f"{e_plain:.2e}), backward {e_bwd:.2e}; forward + "
+                  f"backward {t['ms'] * 1e3:.1f} us, plain "
+                  f"{t['plain_ms'] * 1e3:.1f} us, F.batch_norm + add + "
+                  f"ReLU {t['library_ms'] * 1e3:.1f} us, bound "
+                  f"{t['bound_ms'] * 1e3:.1f} us (spin timer)", flush=True)
+            del x, res, dy, ls, st
+            free_card(torch)
+    print("bn_times_ms " + json.dumps(times))
+    return errs, times
+
+
+def _tally_batchnorms():
+    """Wrap ``_BatchNorm.forward`` so that each call on a card tensor is
+    tallied: "train" and "eval" forwards (counted before the call, as a
+    recomputation that stops early stops after the kernels), and
+    "backward" (a hook on the output's gradient), with "backward_dx" where
+    x or the residual takes a gradient. A replay counter, as
+    _tally_out_dtypes's tally is. Returns the tally and a function that
+    puts the forward back."""
+    from mfas_tpu_torch.core.layers import _BatchNorm
+    from mfas_tpu_torch.runtime import graphs
+
+    calls = {}
+    graphs.count_replays(calls)
+    orig = _BatchNorm.forward
+
+    def add(key):
+        calls[key] = calls.get(key, 0) + 1
+
+    def forward(self, x, residual=None, relu=False):
+        if x.is_cuda:
+            add("train" if self.training else "eval")
+        y = orig(self, x, residual=residual, relu=relu)
+        if x.is_cuda and y.requires_grad:
+            dx = x.requires_grad or (residual is not None
+                                     and residual.requires_grad)
+
+            def hook(grad):
+                add("backward")
+                if dx:
+                    add("backward_dx")
+
+            y.register_hook(hook)
+        return y
+
+    _BatchNorm.forward = forward
+
+    def unwrap():
+        graphs.uncount_replays(calls)
+        _BatchNorm.forward = orig
+
+    return calls, unwrap
+
+
+# the BatchNorm kernels' launches on each path bn_path checked
+BN_PATHS = {}
+
+
+@contextlib.contextmanager
+def bn_path(torch, name):
+    """Around one run of a main path: the BatchNorm kernels' launch counts
+    zeroed before and read after, held to the tally of the BatchNorm calls
+    on the card (_tally_batchnorms): stats once per train-mode call,
+    finalize and apply once per call, grad_stats and grad_finalize once
+    per backward, grad_input once per backward into x or the residual; and
+    at least one call. Recorded in BN_PATHS[name]."""
+    from mfas_tpu_torch.ops import batchnorm as tbn
+
+    tally, unwrap = _tally_batchnorms()
+    tbn.reset_launch_counts()
+    try:
+        yield
+        torch.cuda.synchronize()
+        counts, calls = dict(tbn.launch_counts), dict(tally)
+    finally:
+        unwrap()
+    forwards = calls.get("train", 0) + calls.get("eval", 0)
+    want = {"stats": calls.get("train", 0), "finalize": forwards,
+            "apply": forwards, "grad_stats": calls.get("backward", 0),
+            "grad_finalize": calls.get("backward", 0),
+            "grad_input": calls.get("backward_dx", 0)}
+    check(counts == want and forwards > 0,
+          f"{name}: BatchNorm kernel launches {counts}, want {want} from "
+          f"the BatchNorm calls on the card {calls}")
+    print(f"{name}: BatchNorm kernel launches {counts}, one per call "
+          f"{calls}", flush=True)
+    BN_PATHS[name] = counts
 
 
 REPLAYED_BATCHES = 3
@@ -962,7 +1197,8 @@ def training_phase(torch, work, packed):
             graphs.reset_graph_counts()
             seen.clear()
             t0 = time.time()
-            run = tmain.main(base + [flag] + extra)
+            with bn_path(torch, f"found_ntu_training_{name}"):
+                run = tmain.main(base + [flag] + extra)
             wall = time.time() - t0
             counts = dict(tk.launch_counts)
             resumed = name == "e_resume"
@@ -1357,7 +1593,9 @@ def _search_run(torch, tk, seen, name, argv, want_k1, want_dtype,
     tk.reset_launch_counts()
     graphs.reset_graph_counts()
     seen.clear()
-    with contextlib.redirect_stdout(buf) if capture else \
+    # bn_path outermost: its line stays out of the captured output
+    with bn_path(torch, "ntu_search_" + name.replace(" ", "_")), \
+            contextlib.redirect_stdout(buf) if capture else \
             contextlib.nullcontext():
         run = smain.main(argv)
     counts = dict(tk.launch_counts)
@@ -2616,7 +2854,8 @@ def avmnist_phase(torch, tk, work):
     out = {}
     found = write_avmnist_store(torch, os.path.join(work, "avmnist"),
                                 *AV_FOUND_STORE, seed=5)
-    out["v1_found"] = v1 = avmnist_found(torch, work, found)
+    with bn_path(torch, "avmnist_found_v1"):
+        out["v1_found"] = v1 = avmnist_found(torch, work, found)
     from mfas_tpu_torch import main_found_avmnist as fmain
     # --no-multitask: Model Acc of the fused head, the served output
     out["i6_serving"] = serve(
@@ -2631,7 +2870,8 @@ def avmnist_phase(torch, tk, work):
     shutil.rmtree(found)
     search = write_avmnist_store(torch, os.path.join(work, "avmnist_search"),
                                  *AV_SEARCH_STORE, seed=6)
-    out.update(avmnist_search(torch, work, search))
+    with bn_path(torch, "avmnist_search_v2_v4"):
+        out.update(avmnist_search(torch, work, search))
     out["v5_card_vs_cpu"] = avmnist_card_vs_cpu(torch, search)
     out["input_kernel_launches"] = dict(tk.launch_counts)
     check(sum(tk.launch_counts.values()) == 0,
@@ -4047,7 +4287,10 @@ def serve(torch, tk, name, work, export_argv, predict_argv, want,
     ``mfas_tpu_torch.tools.export_model`` of its found checkpoint with
     --polymorphic_batch --check, then ``mfas_tpu_torch.tools.predict`` of
     the artifact over its test split (launch counts zeroed just before and
-    read just after: none). The printed metric must equal ``want``, the
+    read just after: no input kernel; the BatchNorm kernels' finalize and
+    apply once a batch for each mfas::batch_norm_eval node of the
+    artifact, its BatchNorms as the export on the card records them). The
+    printed metric must equal ``want``, the
     found CLI's --test_cp Model Acc / F1 of the same checkpoint from the
     served (fused) output, and the logits lie within 1e-4 of their max of
     ``want_logits``, that run's. With ``bf16`` also a --bf16 artifact: its size
@@ -4055,6 +4298,7 @@ def serve(torch, tk, name, work, export_argv, predict_argv, want,
     0.05 of max |logit| of the f32 artifact's."""
     import numpy as np
 
+    from mfas_tpu_torch.ops import batchnorm as tbn
     from mfas_tpu_torch.runtime.export import load_exported
     from mfas_tpu_torch.tools import export_model, predict
 
@@ -4070,12 +4314,28 @@ def serve(torch, tk, name, work, export_argv, predict_argv, want,
     # (checked at the phase's end) is put back after
     before = dict(tk.launch_counts)
     tk.reset_launch_counts()
+    tbn.reset_launch_counts()
     res, _ = _quiet(predict.main, [vertical, "--artifact", art,
                                    *predict_argv])
-    counts = dict(tk.launch_counts)
+    torch.cuda.synchronize()
+    counts, bn = dict(tk.launch_counts), dict(tbn.launch_counts)
     for k, v in before.items():
         tk.launch_counts[k] += v
     check(sum(counts.values()) == 0, f"{name}: predict launched {counts}")
+    # exported on the card, each BatchNorm is one mfas::batch_norm_eval
+    # node, which runs finalize and apply once a batch
+    nodes = sum(n.op == "call_function"
+                and n.target is torch.ops.mfas.batch_norm_eval.default
+                for n in torch.export.load(art).graph.nodes)
+    batches = bn["apply"] // nodes if nodes else 0
+    check(bn["finalize"] == bn["apply"] == nodes * batches
+          and sum(bn.values()) == 2 * bn["apply"]
+          and (batches > 0 or nodes == 0),
+          f"{name}: predict's BatchNorm kernel launches {bn} for {nodes} "
+          "batch_norm_eval nodes")
+    BN_PATHS[f"predict_{vertical}_i6"] = bn
+    print(f"{name}: predict ran the BatchNorm kernels of {nodes} "
+          f"batch_norm_eval nodes {batches} times ({bn})", flush=True)
     logits = res["logits"]
     check(np.isfinite(logits).all(), f"{name}: non-finite logits")
     check(res["value"] == want, f"{name}: predict's {res['metric']} "
@@ -4089,7 +4349,8 @@ def serve(torch, tk, name, work, export_argv, predict_argv, want,
          "metric": res["metric"], "value": res["value"],
          "samples": res["samples"],
          "predict_samples_per_s": res["samples"] / res["seconds"],
-         "input_kernel_launches": counts, "max_abs_diff_vs_found": diff,
+         "input_kernel_launches": counts, "bn_kernel_launches": bn,
+         "bn_nodes": nodes, "max_abs_diff_vs_found": diff,
          "max_abs_logit": scale}
     print(f"{name}: exported in {rec['seconds']:.1f} s, {rec['bytes']} "
           f"bytes; predict {res['samples']} samples at "
@@ -5916,6 +6177,7 @@ def main():
               "an NVIDIA card", file=sys.stderr)
         return 2
     root = os.path.dirname(os.path.abspath(__file__))
+    from mfas_tpu_torch.ops import batchnorm as tbn
     from mfas_tpu_torch.ops import input_kernels as tk
 
     torch.backends.cudnn.allow_tf32 = False
@@ -5941,6 +6203,12 @@ def main():
 
     err, ms = kernel_phases(torch, tk)
     free_card(torch)
+    t0 = time.time()
+    for dt in (torch.float32, torch.bfloat16):
+        tbn.load_library(dt)
+    print(f"BatchNorm kernels (f32, bf16) built/loaded in "
+          f"{time.time() - t0:.2f} s")
+    bn_err, bn_ms = bn_kernel_phase(torch, tbn)
 
     work = os.path.join(root, "build", "chip_smoke")
     shutil.rmtree(work, ignore_errors=True)
@@ -6097,6 +6365,16 @@ def main():
          "plain_ms": f32["K2_plain"]["spin"], "bound_ms": bound,
          "bound_by": "bytes", "library_ms": None,
          "ms_by_timer": f32["K2"], "plain_ms_by_timer": f32["K2_plain"]},
+        # forward + backward at the found net's layer1 bn3 in f32; every
+        # case and dtype of bn_kernel_phase under ms_by_case
+        {"name": "batch_norm", "route": "cuda",
+         "source": "mfas_tpu_torch/csrc/batchnorm.cu", "replaces": None,
+         "launches": sum(sum(v.values()) for v in BN_PATHS.values()),
+         "launches_by_path": BN_PATHS, "case": "r50_l1_bn3.f32",
+         "max_rel_err": bn_err, **bn_ms["r50_l1_bn3.f32"],
+         "bound_by": "bytes",
+         "library": "torch.nn.functional.batch_norm + add + relu",
+         "ms_by_case": bn_ms},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -15,7 +15,8 @@ from torch import nn
 
 from mfas_tpu_torch.core import functional as F
 from mfas_tpu_torch.core import init as I
-from mfas_tpu_torch.parallel.mesh import all_reduce_sum, group_rank, group_size
+from mfas_tpu_torch.ops.batchnorm import batch_norm
+from mfas_tpu_torch.parallel.mesh import group_rank, group_size
 
 
 # --------------------------------------------------------------------------
@@ -109,6 +110,10 @@ class _BatchNorm(nn.Module):
     statistics of the global batch and the running variance's unbiased
     factor counts the global rows. Without a group the same sums are used
     as they are.
+
+    ``forward(x, residual=None, relu=False)`` adds ``residual`` to the
+    output and then applies ReLU, where asked: on the card, the epilogue of
+    the fused kernel (ops/batchnorm.py).
     """
 
     def __init__(self, num_features, eps=1e-5, momentum=0.1, *, device):
@@ -125,34 +130,15 @@ class _BatchNorm(nn.Module):
         self.register_buffer("num_batches_tracked",
                              torch.zeros((), dtype=torch.long, device=device))
 
-    def forward(self, x):
-        shape = [1] * x.dim()
-        shape[1] = -1
-        if self.training:
-            axes = [i for i in range(x.dim()) if i != 1]
-            xs = x if x.dtype == torch.float64 else x.float()
-            sums = torch.stack([
-                xs.sum(dim=axes), xs.square().sum(dim=axes),
-                xs.new_full((x.shape[1],), x.numel() // x.shape[1])])
-            s, s2, n = all_reduce_sum(sums, self.group).unbind(0)
-            mean = s / n
-            var = torch.clamp(s2 / n - mean.square(), min=0.0)
-            if self.update_running_stats:
-                with torch.no_grad():
-                    m = self.momentum
-                    self.running_mean.mul_(1 - m).add_(m * mean)
-                    self.running_var.mul_(1 - m).add_(
-                        m * (var * (n / torch.clamp(n - 1, min=1))))
-                    self.num_batches_tracked.add_(1)
-            mean, var = mean.to(x.dtype), var.to(x.dtype)
-        else:
-            mean = self.running_mean.to(x.dtype)
-            var = self.running_var.to(x.dtype)
-        # autocast runs rsqrt in f32 on the card: cast it back
-        inv = torch.rsqrt(var.reshape(shape) + self.eps).to(x.dtype)
-        out = (x - mean.reshape(shape)) * inv
-        return (out * self.weight.to(x.dtype).reshape(shape)
-                + self.bias.to(x.dtype).reshape(shape))
+    def forward(self, x, residual=None, relu=False):
+        """relu?(BatchNorm(x) + residual?): ops/batchnorm.py::batch_norm,
+        the fused kernels on the card and the plain version on the CPU."""
+        return batch_norm(
+            x, self.weight, self.bias, self.running_mean, self.running_var,
+            self.num_batches_tracked, training=self.training,
+            momentum=self.momentum, eps=self.eps,
+            update_running_stats=self.update_running_stats, group=self.group,
+            residual=residual, relu=relu)
 
 
 class BatchNorm1d(_BatchNorm):

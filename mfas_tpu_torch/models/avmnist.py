@@ -50,8 +50,8 @@ class GP_LeNet(nn.Module):
         gps = []
         out = x
         for i in range(1, 4):
-            acti = torch.relu(getattr(self, f"bn{i}")(
-                getattr(self, f"conv{i}")(out)))
+            acti = getattr(self, f"bn{i}")(getattr(self, f"conv{i}")(out),
+                                            relu=True)
             out = F.max_pool2d(acti, 2)
             gps.append(getattr(self, f"gp{i}")(acti))
         return (self.classifier(gps[-1]), *gps)
@@ -78,8 +78,8 @@ class GP_LeNet_Deeper(nn.Module):
         gps = []
         out = x
         for i in range(1, 6):
-            acti = torch.relu(getattr(self, f"bn{i}")(
-                getattr(self, f"conv{i}")(out)))
+            acti = getattr(self, f"bn{i}")(getattr(self, f"conv{i}")(out),
+                                            relu=True)
             out = F.max_pool2d(acti, 2)
             # reference quirk: stage 1 taps post-pool, stages 2-5 pre-pool
             gps.append(getattr(self, f"gp{i}")(out if i == 1 else acti))

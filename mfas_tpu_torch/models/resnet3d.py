@@ -41,11 +41,11 @@ class Bottleneck3D(nn.Module):
         self._has_downsample = downsample is not None
 
     def forward(self, x):
-        out = torch.relu(self.bn1(self.conv1(x)))
-        out = torch.relu(self.bn2(self.conv2(out)))
-        out = self.bn3(self.conv3(out))
+        out = self.bn1(self.conv1(x), relu=True)
+        out = self.bn2(self.conv2(out), relu=True)
+        out = self.conv3(out)
         residual = self.downsample(x) if self._has_downsample else x
-        return torch.relu(out + residual)
+        return self.bn3(out, residual=residual, relu=True)
 
 
 class ResNet3D(nn.Module):

@@ -21,19 +21,13 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import subprocess
-import threading
-from pathlib import Path
 
 import numpy as np
 import torch
 
+from mfas_tpu_torch.ops.cuda_build import CudaLibrary
 from mfas_tpu_torch.runtime.graphs import count_replays
 
-_SRC = Path(__file__).resolve().parents[1] / "csrc" / "input_kernels.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "mfas_tpu_torch"
 _OUT_DTYPES = (torch.float32, torch.bfloat16)
 
 launch_counts = {"u8_normalize": 0, "u8_gather_normalize": 0}
@@ -112,60 +106,26 @@ def u8_gather_normalize_plain(store, sample_idx, frame_idx, mean, std,
 # --------------------------------------------------------------------------
 # the CUDA kernel: build, load, launch
 # --------------------------------------------------------------------------
-_lib = None
-_lib_lock = threading.Lock()
+def _declare(lib):
+    fn = lib.mfas_u8_normalize_frames
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int64] * 3
+                   + [ctypes.c_float] * 6 + [ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+
+
+_LIB = CudaLibrary("input_kernels", _declare)
 
 
 def build_log():
     """nvcc's output (ptxas register and spill report) for the current
     source, or None when it has not been built."""
-    log = _library_path().with_suffix(".log")
-    return log.read_text() if log.exists() else None
-
-
-def _library_path():
-    digest = hashlib.sha256(_SRC.read_bytes()).hexdigest()[:16]
-    return _BUILD_DIR / f"input_kernels_{digest}.so"
-
-
-def _build(so):
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    if CUDA_HOME is None:
-        raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit "
-                           "to build mfas_tpu_torch/csrc/input_kernels.cu")
-    so.parent.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [os.path.join(CUDA_HOME, "bin", "nvcc"),
-           "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-           "-o", str(tmp), str(_SRC)]
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    so.with_suffix(".log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, so)   # atomic: a concurrent loader never sees half a file
+    return _LIB.build_log()
 
 
 def load_library():
     """Build (when the source's hash has no library yet) and load the kernel
     library; returns its ctypes handle."""
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            so = _library_path()
-            if not so.exists():
-                _build(so)
-            lib = ctypes.CDLL(str(so))
-            fn = lib.mfas_u8_normalize_frames
-            fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int64] * 3
-                           + [ctypes.c_float] * 6
-                           + [ctypes.c_int, ctypes.c_void_p])
-            fn.restype = ctypes.c_int
-            _lib = lib
-        return _lib
+    return _LIB.load()
 
 
 def _launch(src, src_frame, n_frames, frame_shape, n_src_frames, mean, std,

@@ -2,7 +2,11 @@
 forward as one self-contained ``torch.export`` artifact (``.pt2``).
 
 The artifact holds the graph and the trained weights, so the serving host
-needs neither this package nor the checkpoint, only torch:
+needs no checkpoint. A model exported on the card records its BatchNorms as
+the custom op ``mfas::batch_norm_eval`` (ops/batchnorm.py: the fused kernels
+on the card, the plain version elsewhere), so loading its artifact needs
+this package, which ``load_exported`` imports; one exported on the CPU holds
+plain PyTorch only:
 
     exp = load_exported("model.pt2", device="cuda")
     logits = exp.call(rgb, ske)          # or exp.module()(rgb, ske)
@@ -83,6 +87,9 @@ class Exported:
 def load_exported(path, device="cpu"):
     """-> Exported, its program moved to ``device``."""
     from torch.export.passes import move_to_device_pass
+
+    # registers mfas::batch_norm_eval, which an export on the card records
+    from mfas_tpu_torch.ops import batchnorm  # noqa: F401
 
     program = torch.export.load(path)
     program = move_to_device_pass(program, torch.device(device))

@@ -13,10 +13,13 @@ artifact (port of tools/export_model.py; same flags and defaults).
 The artifact holds the weights of --test_cp (a ``torch.save`` state_dict or
 the JAX package's checkpoint writer), or the found CLI's initial weights
 with ``--random_init``. It reloads with
-``mfas_tpu_torch.runtime.export.load_exported(path, device)``, or plain
-``torch.export.load``. The serving surface is the fused logits: NTU and
-AV-MNIST take their inputs as one tuple and CIFAR as one image batch, and
-return output 0; MM-IMDB takes (text, image) and returns its last output.
+``mfas_tpu_torch.runtime.export.load_exported(path, device)``, or with
+``torch.export.load`` once ``mfas_tpu_torch.ops.batchnorm`` is imported:
+exported on the card, its BatchNorms are that module's op
+``mfas::batch_norm_eval``, which runs the fused kernels there. The serving
+surface is the fused logits: NTU and AV-MNIST take their inputs as one
+tuple and CIFAR as one image batch, and return output 0; MM-IMDB takes
+(text, image) and returns its last output.
 
 From the command line the model is built and exported on CUDA, and the run
 fails without it; ``main(argv, device="cpu")`` exports on the CPU.

@@ -166,6 +166,44 @@ def case_batchnorm(inp, tmp):
     return out
 
 
+def case_batchnorm_closed_form(inp, tmp):
+    """A float64 BatchNorm3d over this rank's rows under the group, with
+    each (+ residual, ReLU) epilogue: autograd of the plain forward and the
+    closed-form backward the fused kernels implement
+    (ops/batchnorm.py::batch_norm_backward_plain), each (dx, dweight,
+    dbias[, dresidual]) of this rank."""
+    from mfas_tpu_torch.core.layers import BatchNorm3d
+    from mfas_tpu_torch.ops import batchnorm as tbn
+
+    g = _world()
+    rows = pm.row_slice(inp["x"].shape[0], g)
+    x, dy = (torch.from_numpy(inp[k][rows]) for k in ("x", "dy"))
+    out = {}
+    for name, with_res, relu in (("none", False, False),
+                                 ("relu", False, True),
+                                 ("residual_relu", True, True)):
+        bn = BatchNorm3d(x.shape[1], device="cpu").double()
+        with torch.no_grad():
+            bn.weight.copy_(torch.from_numpy(inp["w"]))
+            bn.bias.copy_(torch.from_numpy(inp["b"]))
+        bn.group = g
+        res = torch.from_numpy(inp["res"][rows]) if with_res else None
+        leaves = [x.clone().requires_grad_(), bn.weight, bn.bias]
+        if with_res:
+            leaves.append(res.clone().requires_grad_())
+        y = bn(leaves[0], residual=leaves[3] if with_res else None,
+               relu=relu)
+        auto = torch.autograd.grad(y, leaves, dy)
+        mean, var, n, clamped = tbn.batch_statistics_plain(x, g)
+        closed = tbn.batch_norm_backward_plain(
+            dy, x, y.detach(), mean, torch.rsqrt(var + bn.eps),
+            bn.weight.detach(), n, clamped, training=True, relu=relu,
+            group=g)
+        out[name] = ([_np(t) for t in auto],
+                     [_np(t) for t in closed[:len(auto)]])
+    return out
+
+
 def case_population_stats(inp, tmp):
     """One population forward and backward over this rank's rows of a
     ragged masked batch, --batchnorm, in float64."""
